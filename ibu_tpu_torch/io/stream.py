@@ -1,0 +1,110 @@
+"""Host→device record streaming with prefetch.
+
+Counterpart of :class:`ibu_tpu.io.stream.DeviceStream`. Each host batch of
+structured records is copied into one of a ring of pinned host buffers and
+sent to the card as an ``(B, 3)`` int64 tensor by an asynchronous copy on a
+side stream, so the copies of upcoming batches overlap the consumer's work on
+the current one. Up to ``prefetch`` batches are in flight
+(:func:`ibu_tpu.io.stream.prefetched`).
+
+Ordering rules the ring keeps:
+
+* a pinned buffer is refilled only after the event recorded behind its last
+  copy has completed;
+* the consumer's stream waits on a batch's copy event when the batch is
+  handed out, not when it is queued, so work on earlier batches is not held
+  behind later copies;
+* each batch tensor is allocated on the side stream and marked with
+  ``record_stream`` for the consumer's stream, so the allocator does not
+  reuse its memory while the consumer still reads it.
+
+On the CPU a batch is simply copied into its own tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from ibu_tpu.io.mmap import STREAM_BATCH_RECORDS, STREAM_PREFETCH, MmapReader
+from ibu_tpu.io.stream import prefetched
+from ibu_tpu_torch.ops.u64 import wire_view
+from ibu_tpu_torch.utils.device import resolve_device
+
+
+class DeviceStream:
+    """Prefetching iterator of device-resident ``(B, 3)`` int64 record
+    batches made from an iterator of structured host batches."""
+
+    def __init__(
+        self,
+        batches: Iterable[np.ndarray],
+        device: str | torch.device | None = None,
+        prefetch: int = STREAM_PREFETCH,
+    ):
+        self._device = resolve_device(device)
+        self._batches = iter(batches)
+        depth = max(1, prefetch)
+        if self._device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(self._device)
+            # one more buffer than batches in flight: the consumer's batch
+            # keeps its buffer while `depth` later ones are being filled
+            self._ring: list[list] = [[None, None] for _ in range(depth + 1)]
+            self._iter = prefetched(self._copy_all(), depth)
+        else:
+            self._iter = prefetched(
+                ((torch.from_numpy(wire_view(b).copy()), None) for b in self._batches),
+                depth,
+            )
+
+    def _copy_all(self) -> Iterator[tuple[torch.Tensor, torch.cuda.Event]]:
+        for k, batch in enumerate(self._batches):
+            host = wire_view(batch)
+            slot = self._ring[k % len(self._ring)]
+            buf, done = slot
+            if done is not None:
+                done.synchronize()
+            if buf is None or buf.shape[0] < host.shape[0]:
+                buf = torch.empty(host.shape, dtype=torch.int64, pin_memory=True)
+            staged = buf[: host.shape[0]]
+            staged.numpy()[...] = host
+            with torch.cuda.stream(self._copy_stream):
+                dev = torch.empty(host.shape, dtype=torch.int64, device=self._device)
+                dev.copy_(staged, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            slot[0], slot[1] = buf, done
+            yield dev, done
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> torch.Tensor:
+        dev, done = next(self._iter)
+        if done is not None:
+            consumer = torch.cuda.current_stream(self._device)
+            consumer.wait_event(done)
+            dev.record_stream(consumer)
+        return dev
+
+
+def stream_file(
+    path_or_reader: str | MmapReader,
+    device: str | torch.device | None = None,
+    batch_records: int = STREAM_BATCH_RECORDS,
+    prefetch: int = STREAM_PREFETCH,
+) -> DeviceStream:
+    """Stream an IBU file to the device in ``batch_records`` batches; the
+    last batch is ragged."""
+    from ibu_tpu_torch.parallel.device import record_batches_from_mmap
+
+    reader = (
+        path_or_reader
+        if isinstance(path_or_reader, MmapReader)
+        else MmapReader(path_or_reader)
+    )
+    return DeviceStream(
+        record_batches_from_mmap(reader, batch_records), device=device, prefetch=prefetch
+    )

@@ -1,0 +1,97 @@
+"""Build and load the CUDA codec library (``csrc/codec.cu``).
+
+``nvcc`` compiles the sources of this checkout into a shared library with a
+plain C interface, which :func:`load` opens with ``ctypes``. The library is
+built at first use into ``build/ibu_tpu_torch/`` beside the package, named by
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once. Each build writes a private temporary file and
+renames it into place, so concurrent first uses never see a half-written
+library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import uuid
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCES = (_PKG / "csrc" / "codec.cu",)
+BUILD_DIR = _PKG.parent / "build" / "ibu_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib: ctypes.CDLL | None = None
+
+
+class CudaBuildError(RuntimeError):
+    pass
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on ``PATH``, else under ``$CUDA_HOME/bin`` (default
+    ``/usr/local/cuda``); raises :class:`CudaBuildError` when neither has it."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise CudaBuildError(
+        f"nvcc not found on PATH or at {candidate}; the CUDA codec kernels "
+        "need the CUDA toolkit (set CUDA_HOME to its root)"
+    )
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libibu_codec_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library for them already exists."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.{uuid.uuid4().hex}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise CudaBuildError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr[-4000:]}"
+            )
+        os.replace(tmp, lib)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then open the library and declare its C interface."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.ibu_encode_records.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+    lib.ibu_encode_records.restype = i32
+    lib.ibu_decode_records.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+    lib.ibu_decode_records.restype = i32
+    lib.ibu_cuda_error_string.argtypes = [i32]
+    lib.ibu_cuda_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib

@@ -1,0 +1,143 @@
+"""Fused record codec: CUDA kernels for Hopper and their plain torch versions.
+
+The counterpart of :mod:`ibu_tpu.ops.codec_pallas`'s ``encode_records`` and
+``decode_records``. The kernels live in ``ibu_tpu_torch/csrc/codec.cu``
+(built by :mod:`ibu_tpu_torch.ops._build`); the source note there says what
+bounds them on the card and how they are laid out.
+
+A wrapper given CUDA tensors launches its kernel on the current stream and
+raises if the launch fails; given CPU tensors it runs the plain version
+beside it. There is no fallback from one to the other. Each wrapper counts
+its kernel launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ibu_tpu_torch.ops import _build
+from ibu_tpu_torch.ops.codec import torch_pack, torch_unpack
+
+
+def _check_len(length: int, what: str) -> None:
+    if not 1 <= length <= 32:
+        raise ValueError(f"{what} length {length} outside 1..=32")
+
+
+def _check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(
+            f"{name} must be a {ndim}-D {dtype} tensor, got {t.dim()}-D {t.dtype}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_device(device: torch.device, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"tensors on different devices: {device} and {t.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}; expected cpu or cuda")
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        msg = _build.load().ibu_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def plain_encode_records(
+    bc_rows: torch.Tensor, umi_rows: torch.Tensor, index: torch.Tensor
+) -> torch.Tensor:
+    """Plain torch version of :func:`encode_records`."""
+    return torch.stack([torch_pack(bc_rows), torch_pack(umi_rows), index], dim=1)
+
+
+def plain_decode_records(
+    records: torch.Tensor, bc_len: int, umi_len: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`decode_records`."""
+    return (
+        torch_unpack(records[:, 0], bc_len),
+        torch_unpack(records[:, 1], umi_len),
+        records[:, 2].clone(),
+    )
+
+
+def encode_records(
+    bc_rows: torch.Tensor, umi_rows: torch.Tensor, index: torch.Tensor
+) -> torch.Tensor:
+    """Fused record assembly: ASCII rows ``(N, bc_len)`` and ``(N, umi_len)``
+    uint8 plus the ``(N,)`` int64 index (u64 bits) → ``(N, 3)`` int64 records
+    ``[barcode, umi, index]``. Total: any byte encodes (validate on the host
+    first); lowercase encodes like uppercase."""
+    _check_tensor(bc_rows, "bc_rows", torch.uint8, 2)
+    _check_tensor(umi_rows, "umi_rows", torch.uint8, 2)
+    _check_tensor(index, "index", torch.int64, 1)
+    n, bc_len = bc_rows.shape
+    umi_len = umi_rows.shape[1]
+    _check_len(bc_len, "barcode")
+    _check_len(umi_len, "UMI")
+    if umi_rows.shape[0] != n or index.shape[0] != n:
+        raise ValueError(
+            f"record counts differ: {n} barcodes, {umi_rows.shape[0]} UMIs, "
+            f"{index.shape[0]} indices"
+        )
+    device = bc_rows.device
+    _check_device(device, umi_rows, index)
+    if device.type == "cpu":
+        return plain_encode_records(bc_rows, umi_rows, index)
+    out = torch.empty((n, 3), dtype=torch.int64, device=device)
+    if n == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(device):
+        rc = lib.ibu_encode_records(
+            bc_rows.data_ptr(), umi_rows.data_ptr(), index.data_ptr(),
+            out.data_ptr(), n, bc_len, umi_len,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(rc, "encode_records")
+    encode_records.launches += 1
+    return out
+
+
+encode_records.launches = 0
+
+
+def decode_records(
+    records: torch.Tensor, bc_len: int, umi_len: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused record disassembly: ``(N, 3)`` int64 records → uppercase ASCII
+    rows ``(N, bc_len)`` and ``(N, umi_len)`` uint8 and the ``(N,)`` int64
+    index; the inverse of :func:`encode_records`."""
+    _check_len(bc_len, "barcode")
+    _check_len(umi_len, "UMI")
+    _check_tensor(records, "records", torch.int64, 2)
+    if records.shape[1] != 3:
+        raise ValueError(f"records must be (N, 3), got {tuple(records.shape)}")
+    device = records.device
+    _check_device(device)
+    if device.type == "cpu":
+        return plain_decode_records(records, bc_len, umi_len)
+    n = records.shape[0]
+    bc = torch.empty((n, bc_len), dtype=torch.uint8, device=device)
+    umi = torch.empty((n, umi_len), dtype=torch.uint8, device=device)
+    index = torch.empty((n,), dtype=torch.int64, device=device)
+    if n == 0:
+        return bc, umi, index
+    lib = _build.load()
+    with torch.cuda.device(device):
+        rc = lib.ibu_decode_records(
+            records.data_ptr(), bc.data_ptr(), umi.data_ptr(), index.data_ptr(),
+            n, bc_len, umi_len, torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on(rc, "decode_records")
+    decode_records.launches += 1
+    return bc, umi, index
+
+
+decode_records.launches = 0

@@ -1,0 +1,50 @@
+"""Import boundary and CPU dispatch of the torch port. This file imports no
+jax, so it also runs where jax is not installed."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ibu_tpu_torch.ops import codec_cuda as K
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import ibu_tpu_torch, ibu_tpu_torch.pipelines, ibu_tpu_torch.io.stream\n"
+        "import ibu_tpu_torch.parallel.device, ibu_tpu_torch.ops.codec_cuda\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_jax_import_in_port_sources():
+    for path in (REPO / "ibu_tpu_torch").rglob("*.py"):
+        text = path.read_text()
+        assert "import jax" not in text and "from jax" not in text, path
+
+
+def test_cpu_tensors_run_plain_versions_without_launching(monkeypatch):
+    monkeypatch.setattr(K.encode_records, "launches", 0)
+    monkeypatch.setattr(K.decode_records, "launches", 0)
+    rng = np.random.default_rng(0)
+    bc = torch.from_numpy(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (50, 16))])
+    umi = torch.from_numpy(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (50, 12))])
+    idx = torch.arange(50, dtype=torch.int64)
+    records = K.encode_records(bc, umi, idx)
+    assert torch.equal(records, K.plain_encode_records(bc, umi, idx))
+    out = K.decode_records(records, 16, 12)
+    assert all(torch.equal(a, b) for a, b in zip(out, (bc, umi, idx)))
+    assert (K.encode_records.launches, K.decode_records.launches) == (0, 0)
