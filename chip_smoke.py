@@ -6,17 +6,30 @@
 Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. require a CUDA card and print its name and power limit (``nvidia-smi``);
-2. build the CUDA codec kernels from ``ibu_tpu_torch/csrc`` with ``nvcc``;
+2. build the CUDA codec kernels from ``ibu_tpu_torch/csrc`` with ``nvcc`` and
+   print ptxas's registers and spills;
 3. hold each kernel against its plain torch version on the card, exactly:
    every field length in {1, 15, 16, 17, 31, 32}, a record count that is not
-   a multiple of the block, lowercase input, all-T 32-base fields and
-   indices with bit 63 set;
+   a multiple of the block, lowercase input, all-T 32-base fields, indices
+   with bit 63 set, a misaligned row view, and the fused kernels salted with
+   0xA5A5A5A5 and 0xFFFFFFFF;
 4. drive the record pipeline at 10M records of 16-base barcodes and 12-base
    UMIs: encode → decode, a 1M-record encode+sort to a file byte-identical to
    a numpy oracle, decode of that file, and device file statistics of a
-   10M-record file against the native engine and numpy. Both kernels' launch
-   counters are zeroed just before this phase and must be positive after it;
-5. time each kernel and its plain version at 10M records with CUDA events
+   10M-record file against the native engine and numpy. Both record kernels'
+   launch counters are zeroed just before this phase and must be positive
+   after it;
+5. run the validation matrix (:func:`ibu_tpu_torch.validate.run_matrix`) on
+   the card: 27 of 27 checks, named as in ``TPU_VALIDATE.json``. All four
+   kernels' launch counters are zeroed just before it and must be positive
+   after it;
+6. drive the histogram path at 10M bc16/umi12 records with Zipf-distributed
+   barcodes: ``stream_file_histogram`` and ``barcode_counts(engine="device")``
+   on the unsorted file and on a sorted copy (the fast path) against the host
+   engine and numpy, the spill path and the strict capacity error, a lying
+   sorted flag, a gzip stream into ``DeviceHistogram.run``, and the molecule
+   and pair molecule counts of 1M records against their numpy oracles;
+7. time each kernel and its plain version at 10M records with CUDA events
    over distinct inputs, and check the two agree at that size.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -35,19 +48,38 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ibu_tpu import Header, MmapReader, Writer, native
+from ibu_tpu import Header, MmapReader, Reader, Writer, native
+from ibu_tpu.constructs.record import make_records
 from ibu_tpu_torch import pipelines as PL
 from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops import codec_cuda as K
+from ibu_tpu_torch.ops import stats as S
+from ibu_tpu_torch.ops.u64 import records_to_tensor
+from ibu_tpu_torch.parallel import device as D
+from ibu_tpu_torch.validate import run_matrix
 
 N_MAIN = 10_000_000
 N_SORTED = 1_000_000
 N_CHECK = 100_003  # not a multiple of the 256-thread block
+N_GZIP = 2_000_000
+N_MOLECULES = 1_000_000
+N_LIE = 1_000_000
+BARCODE_POOL = 50_000  # a single-cell run's cells plus background
+GENES = 2_000  # index pool of the molecule phase (the count matrix's columns)
 BC_LEN, UMI_LEN = 16, 12
 #: device bytes per bc16/umi12 record, each way: 16 + 12 + 8 in, 24 out
 BYTES_PER_RECORD = 60
+#: device bytes per 16-base field record: 16 B of ASCII and one 8 B word
+BYTES_PER_FIELD = 24
 LENGTHS = (1, 15, 16, 17, 31, 32)
+SALTS = (0xA5A5A5A5, 0xFFFFFFFF)
+KERNELS = {
+    "encode_records": (K.encode_records, K.plain_encode_records, 252),
+    "decode_records": (K.decode_records, K.plain_decode_records, 327),
+    "encode_planes": (K.encode_planes, K.plain_encode_planes, 166),
+    "decode_planes": (K.decode_planes, K.plain_decode_planes, 205),
+}
 SEED = 0
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 ROOT = Path(__file__).resolve().parent
@@ -94,21 +126,35 @@ def check_kernels(card, n: int) -> int:
     cases = [(L, UMI_LEN) for L in LENGTHS] + [(BC_LEN, L) for L in LENGTHS]
     count = 0
 
-    def encode_case(name, bc, umi, idx):
+    def encode_case(name, bc, umi, idx, salt=None):
         nonlocal count
-        err = max_abs_err([K.encode_records(bc, umi, idx)], [K.plain_encode_records(bc, umi, idx)])
+        err = max_abs_err([K.encode_records(bc, umi, idx, salt)],
+                          [K.plain_encode_records(bc, umi, idx, salt)])
         torch.cuda.synchronize()
         require(err == 0.0, f"encode {name}: max_abs_err {err}")
         count += 1
 
-    def decode_case(name, records, bc_len, umi_len):
+    def decode_case(name, records, bc_len, umi_len, salt=None):
         nonlocal count
         err = max_abs_err(
-            K.decode_records(records, bc_len, umi_len),
-            K.plain_decode_records(records, bc_len, umi_len),
+            K.decode_records(records, bc_len, umi_len, salt),
+            K.plain_decode_records(records, bc_len, umi_len, salt),
         )
         torch.cuda.synchronize()
         require(err == 0.0, f"decode {name}: max_abs_err {err}")
+        count += 1
+
+    def planes_case(name, rows):
+        nonlocal count
+        length = rows.shape[1]
+        words = K.encode_planes(rows)
+        err = max_abs_err([words], [K.plain_encode_planes(rows)])
+        back = card_words(rows.shape[0], gen, card)  # bits above 2L are ignored
+        err = max(err, max_abs_err([K.decode_planes(words, length), K.decode_planes(back, length)],
+                                   [K.plain_decode_planes(words, length),
+                                    K.plain_decode_planes(back, length)]))
+        torch.cuda.synchronize()
+        require(err == 0.0, f"planes {name}: max_abs_err {err}")
         count += 1
 
     for bc_len, umi_len in cases:
@@ -130,6 +176,24 @@ def check_kernels(card, n: int) -> int:
     bit63 = card_words(n, gen, card) | torch.iinfo(torch.int64).min
     encode_case("bit-63 index", card_rows(n, BC_LEN, gen, card),
                 card_rows(n, UMI_LEN, gen, card), bit63)
+    for salt in SALTS:
+        name = f"salt {salt:#x}"
+        encode_case(name, card_rows(n, BC_LEN, gen, card), card_rows(n, UMI_LEN, gen, card),
+                    bit63, salt)
+        decode_case(name, card_words(n, gen, card, (3,)), BC_LEN, UMI_LEN, salt)
+        salted = K.encode_records(lower, lower[:, :10].contiguous(), bit63, salt)
+        require(torch.equal(K.decode_records(salted, 20, 10, salt)[2], bit63),
+                f"{name} round trip gives back the index")
+
+    for L in LENGTHS:
+        planes_case(f"L={L} n={n}", card_rows(n, L, gen, card))
+    buf = card_rows(1, n * BC_LEN + 1, gen, card)[0]
+    planes_case("misaligned row view", buf[1:].view(n, BC_LEN))
+    planes_case("lowercase", lower)
+    require(torch.equal(K.decode_planes(K.encode_planes(lower), 20), lower - 32),
+            "lowercase planes decode to uppercase")
+    planes_case("all-T32", t32)
+    require(bool((K.encode_planes(t32) == -1).all()), "all-T32 planes set bit 63")
     torch.cuda.synchronize()
     return count
 
@@ -139,7 +203,7 @@ def timed(step: str, fn):
     out = fn()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    log(f"main path: {step}: {time.perf_counter() - t0:.3f} s")
+    log(f"wall: {step}: {time.perf_counter() - t0:.3f} s")
     return out
 
 
@@ -186,10 +250,127 @@ def main_path(card, n_main: int, n_sorted: int, workdir: Path) -> None:
     nat = native.checksum_parallel(stats_path, MmapReader(stats_path).len())
     np_sums = tuple(int(records[f].sum(dtype=np.uint64)) for f in ("barcode", "umi", "index"))
     got_sums = (stats["barcode_sum"], stats["umi_sum"], stats["index_sum"])
-    log(f"main path: file_stats {stats}")
+    log(f"record path: file_stats {stats}")
     require(stats["count"] == n_main, "file_stats count")
     require(got_sums == nat, f"file_stats sums {got_sums} equal the native engine {nat}")
     require(got_sums == np_sums, f"file_stats sums equal numpy {np_sums}")
+
+
+def reset_launches() -> None:
+    for kernel, _, _ in KERNELS.values():
+        kernel.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: kernel.launches for name, (kernel, _, _) in KERNELS.items()}
+
+
+def matrix_phase(card) -> dict:
+    """Phase 5: the validation matrix on the card, as ``python -m
+    ibu_tpu_torch.validate`` runs it."""
+    names = list(json.loads((ROOT / "TPU_VALIDATE.json").read_text())["checks"])
+    reset_launches()
+    t0 = time.perf_counter()
+    results = run_matrix(progress=log, device=card)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    passed = sum(ok for _, ok in results)
+    log(f"validation matrix: {passed}/{len(results)} passed ({time.perf_counter() - t0:.2f} s); "
+        f"launches {launches}")
+    require([name for name, _ in results] == names, "matrix checks are named as in TPU_VALIDATE.json")
+    require(passed == len(names), "every matrix check passes")
+    require(all(v > 0 for v in launches.values()), "every kernel ran in the matrix")
+    return launches
+
+
+def write_ibu(path: Path, records: np.ndarray, sorted_flag: bool = False, **kwargs) -> str:
+    header = Header.new(BC_LEN, UMI_LEN)
+    if sorted_flag:
+        header.set_sorted()
+    with Writer.from_path(str(path), header, **kwargs) as w:
+        w.write_batch(records)
+    return str(path)
+
+
+def raises(fn, match: str) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        require(match in str(e), f"error names {match!r}: {e}")
+        return str(e)
+    raise RuntimeError(f"check failed: expected a ValueError naming {match!r}")
+
+
+def histogram_path(card, n: int, workdir: Path) -> None:
+    """Phase 6: per-barcode counts of a 10M-record file through every
+    histogram engine, each against the host engine and numpy."""
+    rng = np.random.default_rng(SEED + 2)
+    pool = rng.permutation(np.unique(rng.integers(0, 1 << 32, 2 * BARCODE_POOL, dtype=np.uint64)))
+    pool = pool[:BARCODE_POOL]
+    weights = 1.0 / np.arange(1, BARCODE_POOL + 1)  # Zipf, s = 1
+    bc = pool[rng.choice(BARCODE_POOL, size=n, p=weights / weights.sum())]
+    umi = rng.integers(0, 1 << (2 * UMI_LEN), n, dtype=np.uint64)
+    records = make_records(bc, umi, np.arange(n, dtype=np.uint64))
+    want_keys, want_counts = np.unique(bc, return_counts=True)
+    want = dict(zip(want_keys.tolist(), want_counts.tolist()))
+    log(f"histogram path: {n} records, {len(want)} distinct barcodes, "
+        f"largest count {int(want_counts.max())}")
+
+    unsorted = write_ibu(workdir / "hist.ibu", records)
+    srt = timed(f"sort_batch {n}", lambda: PL.sort_batch(
+        records, bc_len=BC_LEN, umi_len=UMI_LEN, index_bits=32, device=card))
+    require(np.array_equal(srt["barcode"], np.sort(bc)), "sort_batch orders the barcodes")
+    sorted_path = write_ibu(workdir / "hist_sorted.ibu", srt, sorted_flag=True)
+
+    host = timed(f"barcode_counts host {n}", lambda: PL.barcode_counts(unsorted, engine="host"))
+    require(np.array_equal(host[0], want_keys) and np.array_equal(host[1], want_counts),
+            "the host engine equals numpy")
+    for label, path in (("unsorted", unsorted), ("sorted", sorted_path)):
+        got = timed(f"stream_file_histogram {label} {n}",
+                    lambda: D.stream_file_histogram(MmapReader(path), device=card))
+        require(got == want, f"stream_file_histogram {label} equals numpy")
+        keys, counts = timed(f"barcode_counts device {label} {n}",
+                             lambda: PL.barcode_counts(path, engine="device", device=card))
+        require(np.array_equal(keys, host[0]) and np.array_equal(counts, host[1]),
+                f"barcode_counts device {label} equals the host engine")
+
+    spill = D.DeviceHistogram(capacity=16384, spill=True, device=card)
+    got = timed(f"DeviceHistogram capacity=16384 spill {n}",
+                lambda: spill.run(D.record_batches_from_mmap(MmapReader(unsorted))))
+    require(got == want and len(spill._spilled) > 0, "the spill path is exact and engaged")
+    strict = D.DeviceHistogram(capacity=16384, spill=False, device=card)
+    log("histogram path: strict capacity: " + raises(
+        lambda: strict.run(D.record_batches_from_mmap(MmapReader(unsorted))), "device table"))
+    lie = write_ibu(workdir / "lie.ibu", records[:N_LIE], sorted_flag=True)
+    log("histogram path: lying sorted flag: " + raises(
+        lambda: D.stream_file_histogram(MmapReader(lie), device=card), "sorted"))
+
+    head = records[:N_GZIP]
+    gz = write_ibu(workdir / "hist.ibu.gz", head, compression="gzip", level=1)
+    gz_want = PL.host_stream_histogram(Reader.from_path(gz).batches())
+    require(gz_want == S.barcode_histogram_np(head), "the gzip host engine equals numpy")
+    got = timed(f"DeviceHistogram gzip {len(head)}",
+                lambda: D.DeviceHistogram(device=card).run(Reader.from_path(gz).batches()))
+    require(got == gz_want, "DeviceHistogram over a gzip stream equals the host engine")
+    got = timed(f"sharded_barcode_histogram gzip {len(head)}",
+                lambda: D.sharded_barcode_histogram(Reader.from_path(gz).batches(), device=card))
+    require(got == gz_want, "sharded_barcode_histogram over a gzip stream equals the host engine")
+
+    m = min(N_MOLECULES, n)
+    mrec = make_records(bc[:m], umi[:m], rng.integers(0, GENES, m, dtype=np.uint64))
+    dev = records_to_tensor(mrec, card)
+    keys, mol, n_uniq = timed(f"molecule_counts {m}", lambda: S.molecule_counts(
+        dev, 1 << 16, bc_len=BC_LEN, umi_len=UMI_LEN))
+    mol_want = S.molecule_counts_np(mrec)
+    require(S.table_dict(keys, mol) == mol_want and int(n_uniq) == len(mol_want),
+            "molecule_counts equals numpy")
+    keys, counts, n_pairs = timed(f"pair_molecule_counts {m}", lambda: S.pair_molecule_counts(
+        dev, 1 << 20, bc_len=BC_LEN, umi_len=UMI_LEN, index_bits=32))
+    pair_want = S.pair_molecule_counts_np(mrec)
+    require(S.table_dict(keys, counts) == pair_want and int(n_pairs) == len(pair_want),
+            "pair_molecule_counts equals numpy")
+    log(f"histogram path: {len(mol_want)} barcodes with molecules, {len(pair_want)} "
+        "(barcode, gene) pairs")
 
 
 def time_pair(kernel, plain, sets, iters: int, plain_iters: int):
@@ -210,28 +391,36 @@ def time_pair(kernel, plain, sets, iters: int, plain_iters: int):
     return run(kernel, iters), run(plain, plain_iters)
 
 
+def as_tuple(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
 def time_kernels(card, n: int, launches: dict) -> list[dict]:
-    """Phase 5: kernel and plain version at the main path's shapes."""
+    """Phase 7: kernel and plain version at the main path's shapes."""
     gen = torch.Generator(device=card).manual_seed(SEED + 1)
     enc_sets = [
         (card_rows(n, BC_LEN, gen, card), card_rows(n, UMI_LEN, gen, card), card_words(n, gen, card))
         for _ in range(3)
     ]
-    dec_sets = [(K.encode_records(*s), BC_LEN, UMI_LEN) for s in enc_sets]
-    enc_err = max_abs_err([K.encode_records(*enc_sets[0])], [K.plain_encode_records(*enc_sets[0])])
-    dec_err = max_abs_err(K.decode_records(*dec_sets[0]), K.plain_decode_records(*dec_sets[0]))
-    torch.cuda.synchronize()
-    require(enc_err == 0.0 and dec_err == 0.0, f"kernels agree at n={n}")
+    plane_sets = [(card_rows(n, BC_LEN, gen, card),) for _ in range(3)]
+    sets = {
+        "encode_records": (enc_sets, BYTES_PER_RECORD),
+        "decode_records": ([(K.encode_records(*s), BC_LEN, UMI_LEN) for s in enc_sets],
+                           BYTES_PER_RECORD),
+        "encode_planes": (plane_sets, BYTES_PER_FIELD),
+        "decode_planes": ([(K.encode_planes(*s), BC_LEN) for s in plane_sets], BYTES_PER_FIELD),
+    }
     out = []
-    for name, kernel, plain, sets, err, line in (
-        ("encode_records", K.encode_records, K.plain_encode_records, enc_sets, enc_err, 252),
-        ("decode_records", K.decode_records, K.plain_decode_records, dec_sets, dec_err, 327),
-    ):
-        ms, plain_ms = time_pair(kernel, plain, sets, iters=20, plain_iters=5)
-        gbps = BYTES_PER_RECORD * n / (ms * 1e6)
-        plain_gbps = BYTES_PER_RECORD * n / (plain_ms * 1e6)
+    for name, (kernel, plain, line) in KERNELS.items():
+        inputs, nbytes = sets[name]
+        err = max_abs_err(as_tuple(kernel(*inputs[0])), as_tuple(plain(*inputs[0])))
+        torch.cuda.synchronize()
+        require(err == 0.0, f"{name} agrees with its plain version at n={n}")
+        ms, plain_ms = time_pair(kernel, plain, inputs, iters=20, plain_iters=5)
+        gbps = nbytes * n / (ms * 1e6)
+        plain_gbps = nbytes * n / (plain_ms * 1e6)
         log(f"timing: {name} n={n}: kernel {ms:.4f} ms ({gbps:.1f} GB/s at "
-            f"{BYTES_PER_RECORD} B/record), plain {plain_ms:.4f} ms ({plain_gbps:.1f} GB/s)")
+            f"{nbytes} B/record), plain {plain_ms:.4f} ms ({plain_gbps:.1f} GB/s)")
         out.append({
             "name": name,
             "route": "cuda",
@@ -263,6 +452,10 @@ def main() -> int:
     lib = _build.build()
     _build.load()
     log(f"build: {lib.name} with {_build.find_nvcc()}: {time.perf_counter() - t0:.2f} s")
+    report = lib.with_suffix(".log")
+    for line in report.read_text().splitlines() if report.exists() else ["(no ptxas report)"]:
+        if "registers" in line or "spill" in line or "entry function" in line:
+            log(f"ptxas: {line.strip()}")
 
     t0 = time.perf_counter()
     n_checks = check_kernels(card, N_CHECK)
@@ -273,14 +466,17 @@ def main() -> int:
     workdir.mkdir(parents=True, exist_ok=True)
     try:
         main_path(card, N_MAIN, N_SORTED, workdir)
+        record_launches = {name: KERNELS[name][0].launches
+                           for name in ("encode_records", "decode_records")}
+        log(f"launches on the record path: {record_launches}")
+        require(all(v > 0 for v in record_launches.values()),
+                "both record kernels ran on the record path")
+        launches = matrix_phase(card)
+        reset_launches()
+        histogram_path(card, N_MAIN, workdir)
+        log(f"launches on the histogram path (torch ops, no codec kernel): {read_launches()}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    launches = {
-        "encode_records": K.encode_records.launches,
-        "decode_records": K.decode_records.launches,
-    }
-    log(f"launches on the main path: {launches}")
-    require(all(v > 0 for v in launches.values()), "every kernel ran on the main path")
 
     kernels = time_kernels(card, N_MAIN, launches)
     torch.cuda.synchronize()

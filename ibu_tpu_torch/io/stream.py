@@ -18,7 +18,10 @@ Ordering rules the ring keeps:
   ``record_stream`` for the consumer's stream, so the allocator does not
   reuse its memory while the consumer still reads it.
 
-On the CPU a batch is simply copied into its own tensor.
+On the CPU a batch is simply copied into its own tensor. With
+``with_hint=True`` each item is ``(batch, bc16)``, the histogram engines'
+"every barcode fits the lo word" hint computed on the host wire view before
+the copy (:func:`ibu_tpu_torch.parallel.device.bc16_hint`).
 """
 
 from __future__ import annotations
@@ -31,21 +34,25 @@ import torch
 from ibu_tpu.io.mmap import STREAM_BATCH_RECORDS, STREAM_PREFETCH, MmapReader
 from ibu_tpu.io.stream import prefetched
 from ibu_tpu_torch.ops.u64 import wire_view
+from ibu_tpu_torch.parallel.device import bc16_hint, record_batches_from_mmap
 from ibu_tpu_torch.utils.device import resolve_device
 
 
 class DeviceStream:
     """Prefetching iterator of device-resident ``(B, 3)`` int64 record
-    batches made from an iterator of structured host batches."""
+    batches made from an iterator of structured host batches (with
+    ``with_hint``, of ``(batch, bc16)`` pairs)."""
 
     def __init__(
         self,
         batches: Iterable[np.ndarray],
         device: str | torch.device | None = None,
         prefetch: int = STREAM_PREFETCH,
+        with_hint: bool = False,
     ):
         self._device = resolve_device(device)
         self._batches = iter(batches)
+        self._with_hint = with_hint
         depth = max(1, prefetch)
         if self._device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self._device)
@@ -54,14 +61,20 @@ class DeviceStream:
             self._ring: list[list] = [[None, None] for _ in range(depth + 1)]
             self._iter = prefetched(self._copy_all(), depth)
         else:
-            self._iter = prefetched(
-                ((torch.from_numpy(wire_view(b).copy()), None) for b in self._batches),
-                depth,
-            )
+            self._iter = prefetched(self._copy_all_cpu(), depth)
 
-    def _copy_all(self) -> Iterator[tuple[torch.Tensor, torch.cuda.Event]]:
+    def _hint(self, host: np.ndarray) -> bool | None:
+        return bc16_hint(host) if self._with_hint else None
+
+    def _copy_all_cpu(self):
+        for batch in self._batches:
+            host = wire_view(batch)
+            yield torch.from_numpy(host.copy()), None, self._hint(host)
+
+    def _copy_all(self) -> Iterator[tuple[torch.Tensor, torch.cuda.Event, bool | None]]:
         for k, batch in enumerate(self._batches):
             host = wire_view(batch)
+            hint = self._hint(host)
             slot = self._ring[k % len(self._ring)]
             buf, done = slot
             if done is not None:
@@ -76,18 +89,18 @@ class DeviceStream:
                 done = torch.cuda.Event()
                 done.record(self._copy_stream)
             slot[0], slot[1] = buf, done
-            yield dev, done
+            yield dev, done, hint
 
     def __iter__(self):
         return self
 
-    def __next__(self) -> torch.Tensor:
-        dev, done = next(self._iter)
+    def __next__(self) -> torch.Tensor | tuple[torch.Tensor, bool]:
+        dev, done, hint = next(self._iter)
         if done is not None:
             consumer = torch.cuda.current_stream(self._device)
             consumer.wait_event(done)
             dev.record_stream(consumer)
-        return dev
+        return (dev, hint) if self._with_hint else dev
 
 
 def stream_file(
@@ -95,16 +108,18 @@ def stream_file(
     device: str | torch.device | None = None,
     batch_records: int = STREAM_BATCH_RECORDS,
     prefetch: int = STREAM_PREFETCH,
+    with_hint: bool = False,
 ) -> DeviceStream:
     """Stream an IBU file to the device in ``batch_records`` batches; the
     last batch is ragged."""
-    from ibu_tpu_torch.parallel.device import record_batches_from_mmap
-
     reader = (
         path_or_reader
         if isinstance(path_or_reader, MmapReader)
         else MmapReader(path_or_reader)
     )
     return DeviceStream(
-        record_batches_from_mmap(reader, batch_records), device=device, prefetch=prefetch
+        record_batches_from_mmap(reader, batch_records),
+        device=device,
+        prefetch=prefetch,
+        with_hint=with_hint,
     )

@@ -1,2 +1,3 @@
-"""Device operations: the record codec (CUDA kernels and plain torch
-versions), exact field sums and the record sort."""
+"""Device operations: the 2-bit codec (CUDA kernels and plain torch
+versions, fused record and single field), exact field sums, the record sort
+and the barcode-grouped aggregations."""

@@ -6,7 +6,8 @@ built at first use into ``build/ibu_tpu_torch/`` beside the package, named by
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. Each build writes a private temporary file and
 renames it into place, so concurrent first uses never see a half-written
-library.
+library. ``nvcc``'s report (``-Xptxas -v``: registers, shared memory and
+spills of each kernel) is kept beside the library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ SOURCES = (_PKG / "csrc" / "codec.cu",)
 BUILD_DIR = _PKG.parent / "build" / "ibu_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -74,6 +75,7 @@ def build() -> Path:
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stderr[-4000:]}"
             )
+        lib.with_suffix(".log").write_text(proc.stderr)
         os.replace(tmp, lib)
     finally:
         tmp.unlink(missing_ok=True)
@@ -86,11 +88,15 @@ def load() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ibu_encode_records.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+    ptr, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
+    lib.ibu_encode_records.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, u32, ptr]
     lib.ibu_encode_records.restype = i32
-    lib.ibu_decode_records.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+    lib.ibu_decode_records.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, u32, ptr]
     lib.ibu_decode_records.restype = i32
+    lib.ibu_encode_planes.argtypes = [ptr, ptr, i64, i32, ptr]
+    lib.ibu_encode_planes.restype = i32
+    lib.ibu_decode_planes.argtypes = [ptr, ptr, i64, i32, ptr]
+    lib.ibu_decode_planes.restype = i32
     lib.ibu_cuda_error_string.argtypes = [i32]
     lib.ibu_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,19 +1,31 @@
-"""Device statistics on ``(N, 3)`` int64 records: exact sums and the sort.
+"""Device statistics on ``(N, 3)`` int64 records: exact sums, the sort and
+the barcode-grouped aggregations.
 
 Counterpart of :mod:`ibu_tpu.ops.stats`. The JAX package sums through a
 u16-limb pyramid because the TPU is 32-bit; here an exact mod-2^64 field sum
 is a wrapping int64 sum. The record sort is stable least-significant-first
 argsort passes over sign-flipped keys, in torch ops.
+
+The aggregations (:func:`barcode_histogram`, :func:`molecule_counts`,
+:func:`pair_molecule_counts`) keep the JAX package's static-size contract:
+tables padded to a capacity with the tail zeroed, plus the true distinct
+count, which exceeds the capacity on overflow (the caller checks). Groups come
+from one sort, boundary flags and a cumsum; each table slot finds its group's
+bounds by ``searchsorted``, so no record-sized scatter runs and nothing waits
+on the device. The numpy oracles are copies of the JAX package's (which
+cannot be imported here: that module loads jax).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ibu_tpu_torch.ops.u64 import U64_MASK, flip_sign
+from ibu_tpu_torch.ops.u64 import SIGN_BIT, U64_MASK, flip_sign
 
 _FIELDS = ("barcode", "umi", "index")
 _LO32 = 0xFFFFFFFF
+_HALF32 = 1 << 31
 
 
 def field_sums(records: torch.Tensor) -> torch.Tensor:
@@ -27,35 +39,49 @@ def checksum_records(records: torch.Tensor) -> tuple[int, int, int]:
     return tuple(int(s) & U64_MASK for s in field_sums(records).tolist())
 
 
-def _sort_impl(records: torch.Tensor, hi_used: tuple[bool, bool, bool]) -> torch.Tensor:
-    """Sort by (barcode, umi, index) in unsigned order.
+def checksum_records_np(records: np.ndarray) -> tuple[int, int, int]:
+    """Host oracle for :func:`checksum_records` over a structured record array."""
+    return tuple(
+        int(records[f].sum(dtype=object)) & U64_MASK
+        for f in ("barcode", "umi", "index")
+    )
 
-    A field whose hi word is dropped by a hint takes 32 key bits, a full
-    field 64; neighbouring fields are packed into one int64 key while they
-    fit (bc16 + umi12 + index is two keys, not three). Each key is sign
-    flipped and sorted by a stable argsort, last key first. As in the JAX
-    package, dropped hi words come back as zeros.
-    """
-    cols = [
-        records[:, f] if hi_used[f] else records[:, f] & _LO32 for f in range(3)
-    ]
+
+def _lex_order(cols: list[torch.Tensor], widths: list[int]) -> torch.Tensor:
+    """Permutation sorting rows by ``cols`` (most significant first) in
+    unsigned order. A column of width 32 holds values below 2^32; neighbouring
+    columns are packed into one int64 key while they fit (bc16 + umi12 is one
+    key, not two). Each key is sign flipped and sorted by a stable argsort,
+    last key first."""
     keys: list[torch.Tensor] = []
     key, bits = None, 0
-    for f in range(3):
-        width = 64 if hi_used[f] else 32
+    for col, width in zip(cols, widths):
         if key is not None and bits + width <= 64:
-            key, bits = (key << width) | cols[f], bits + width
+            key, bits = (key << width) | col, bits + width
         else:
             if key is not None:
                 keys.append(key)
-            key, bits = cols[f], width
+            key, bits = col, width
     keys.append(key)
     perm = None
     for key in reversed(keys):
         k = key if perm is None else key[perm]
         order = torch.sort(flip_sign(k), stable=True).indices
         perm = order if perm is None else perm[order]
-    return torch.stack(cols, dim=1)[perm]
+    return perm
+
+
+def _hinted(col: torch.Tensor, hi_used: bool) -> tuple[torch.Tensor, int]:
+    """A field and its key width: the lo 32 bits alone when a hint says the
+    hi word is zero (as in the JAX package, a violated hint is not seen)."""
+    return (col, 64) if hi_used else (col & _LO32, 32)
+
+
+def _sort_impl(records: torch.Tensor, hi_used: tuple[bool, bool, bool]) -> torch.Tensor:
+    """Sort by (barcode, umi, index) in unsigned order; as in the JAX
+    package, hi words dropped by a hint come back as zeros."""
+    cols, widths = zip(*(_hinted(records[:, f], hi_used[f]) for f in range(3)))
+    return torch.stack(cols, dim=1)[_lex_order(list(cols), list(widths))]
 
 
 def sort_records(
@@ -90,3 +116,184 @@ def sort_records(
                 "nonzero bits; fix the bc_len/umi_len/index_bits hints"
             )
     return _sort_impl(records, hi_used)
+
+
+# ---------------------------------------------------------------------------
+# barcode-grouped aggregations
+# ---------------------------------------------------------------------------
+
+
+def _changed(cols: list[torch.Tensor]) -> torch.Tensor:
+    """Flags of the rows where any of ``cols`` differs from the row before;
+    row 0 is always flagged."""
+    tail = cols[0][1:] != cols[0][:-1]
+    for c in cols[1:]:
+        tail |= c[1:] != c[:-1]
+    # a device-side fill: assigning a host scalar would wait on the card
+    head = torch.ones(1, dtype=torch.bool, device=tail.device)
+    return torch.cat([head, tail])
+
+
+def _group_bounds(first: torch.Tensor, n_slots: int):
+    """Per table slot ``j``, the bounds ``[start, end)`` of the ``j``-th
+    group given its boundary flags (both ``n`` past the last group), and the
+    number of groups as a device scalar."""
+    seg = torch.cumsum(first, 0) - 1
+    slots = torch.arange(n_slots, dtype=seg.dtype, device=seg.device)
+    starts = torch.searchsorted(seg, slots, side="left")
+    ends = torch.searchsorted(seg, slots, side="right")
+    return starts, ends, seg[-1] + 1
+
+
+def _prefix(flags: torch.Tensor) -> torch.Tensor:
+    """``p[i] = flags[:i].sum()`` for ``i`` in ``0..=n``."""
+    return torch.nn.functional.pad(torch.cumsum(flags, 0), (1, 0))
+
+
+def _empty_tables(records: torch.Tensor, size: int, key_shape: tuple = ()):
+    """The tables and distinct count of no records."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int64, device=records.device)
+
+    return zeros(size, *key_shape), zeros(size), zeros()
+
+
+def barcode_histogram(
+    records: torch.Tensor, max_uniques: int, bc_len: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Records per distinct barcode: ``(keys, counts, num_unique)``, keys and
+    counts ``(max_uniques,)`` int64 in ascending unsigned order with the tail
+    zeroed, and ``num_unique`` the true distinct count (a 0-d tensor; above
+    ``max_uniques`` the groups past the table were dropped).
+
+    ``bc_len <= 16`` is a caller-verified hint that barcode hi words are zero:
+    only the lo 32 bits group, and a violated hint mis-groups silently.
+    """
+    n = records.shape[0]
+    if n == 0:
+        return _empty_tables(records, max_uniques)
+    if bc_len is None or bc_len > 16:
+        sorted_bc = torch.sort(flip_sign(records[:, 0])).values ^ SIGN_BIT
+    else:
+        # the lo words alone, offset into int32 so that signed order is
+        # unsigned order: a 32-bit sort key instead of a 64-bit one
+        lo = ((records[:, 0] & _LO32) - _HALF32).to(torch.int32)
+        sorted_bc = torch.sort(lo).values.to(torch.int64) + _HALF32
+    starts, ends, num_unique = _group_bounds(_changed([sorted_bc]), max_uniques)
+    counts = ends - starts
+    keys = torch.where(counts > 0, sorted_bc[starts.clamp(max=n - 1)], 0)
+    return keys, counts, num_unique
+
+
+def barcode_histogram_np(records: np.ndarray) -> dict[int, int]:
+    """Host oracle: barcode → count."""
+    vals, counts = np.unique(records["barcode"], return_counts=True)
+    return {int(v): int(c) for v, c in zip(vals, counts)}
+
+
+def molecule_counts(
+    records: torch.Tensor,
+    max_uniques: int,
+    bc_len: int | None = None,
+    umi_len: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Distinct ``(barcode, umi)`` pairs per barcode (UMI deduplication):
+    ``(keys, mol_counts, num_unique)`` with :func:`barcode_histogram`'s
+    contract. ``bc_len``/``umi_len <= 16`` are caller-verified hints."""
+    n = records.shape[0]
+    if n == 0:
+        return _empty_tables(records, max_uniques)
+    bc, bc_w = _hinted(records[:, 0], bc_len is None or bc_len > 16)
+    umi, umi_w = _hinted(records[:, 1], umi_len is None or umi_len > 16)
+    perm = _lex_order([bc, umi], [bc_w, umi_w])
+    bc, umi = bc[perm], umi[perm]
+    bc_first = _changed([bc])
+    starts, ends, num_unique = _group_bounds(bc_first, max_uniques)
+    pairs = _prefix(bc_first | _changed([umi]))
+    mol = pairs[ends] - pairs[starts]
+    keys = torch.where(mol > 0, bc[starts.clamp(max=n - 1)], 0)
+    return keys, mol, num_unique
+
+
+def molecule_counts_np(records: np.ndarray) -> dict[int, int]:
+    """Host oracle: barcode → number of distinct (barcode, umi) pairs."""
+    pairs = np.unique(
+        np.stack([records["barcode"], records["umi"]], axis=1), axis=0
+    )
+    vals, counts = np.unique(pairs[:, 0], return_counts=True)
+    return {int(v): int(c) for v, c in zip(vals, counts)}
+
+
+def pair_molecule_counts(
+    records: torch.Tensor,
+    max_pairs: int,
+    bc_len: int | None = None,
+    umi_len: int | None = None,
+    index_bits: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Distinct ``(barcode, umi, index)`` triples per ``(barcode, index)``
+    pair (the count matrix): ``(pair_keys, counts, num_pairs)`` with
+    ``pair_keys`` ``(max_pairs, 2)`` int64 ``[barcode, index]`` in ascending
+    unsigned order, the tail zeroed, and ``num_pairs`` the true pair count
+    (above ``max_pairs`` means overflow). Hints as in :func:`molecule_counts`,
+    plus ``index_bits <= 32``."""
+    n = records.shape[0]
+    if n == 0:
+        return _empty_tables(records, max_pairs, (2,))
+    bc, bc_w = _hinted(records[:, 0], bc_len is None or bc_len > 16)
+    umi, umi_w = _hinted(records[:, 1], umi_len is None or umi_len > 16)
+    idx, idx_w = _hinted(records[:, 2], index_bits is None or index_bits > 32)
+    perm = _lex_order([bc, idx, umi], [bc_w, idx_w, umi_w])
+    bc, idx, umi = bc[perm], idx[perm], umi[perm]
+    pair_first = _changed([bc, idx])
+    starts, ends, num_pairs = _group_bounds(pair_first, max_pairs)
+    triples = _prefix(pair_first | _changed([umi]))
+    counts = triples[ends] - triples[starts]
+    at = starts.clamp(max=n - 1)
+    pair_keys = torch.where(
+        (counts > 0)[:, None], torch.stack([bc[at], idx[at]], dim=1), 0
+    )
+    return pair_keys, counts, num_pairs
+
+
+def pair_molecule_counts_np(records: np.ndarray) -> dict:
+    """Host oracle: (barcode, index) → distinct (barcode, umi, index)
+    triples."""
+    triples = np.unique(
+        np.stack(
+            [records["barcode"], records["umi"], records["index"]], axis=1
+        ),
+        axis=0,
+    )
+    pairs, counts = np.unique(triples[:, [0, 2]], axis=0, return_counts=True)
+    return {
+        (int(b), int(i)): int(c) for (b, i), c in zip(pairs.tolist(), counts)
+    }
+
+
+def table_dict(keys: torch.Tensor, counts: torch.Tensor) -> dict:
+    """Nonzero slots of a static-size table → ``{key: count}`` on the host,
+    keys as unsigned ints; a ``(size, 2)`` key table gives tuple keys."""
+    keys = keys.cpu().numpy().view(np.uint64)
+    counts = counts.cpu().numpy()
+    nz = np.flatnonzero(counts)
+    if keys.ndim == 2:
+        return dict(zip(map(tuple, keys[nz].tolist()), counts[nz].tolist()))
+    return dict(zip(keys[nz].tolist(), counts[nz].tolist()))
+
+
+def group_sum_np(parts) -> tuple[np.ndarray, np.ndarray]:
+    """Host merge of sparse ``(keys, counts)`` partials (uint64 keys, each
+    part's keys distinct) → ``(keys, sums)``, ascending uint64 keys and int64
+    sums: one stable argsort and one ``reduceat``."""
+    parts = list(parts)
+    if not parts or not sum(len(k) for k, _ in parts):
+        return np.empty(0, dtype=np.uint64), np.empty(0, dtype=np.int64)
+    keys = np.concatenate([np.asarray(k, dtype=np.uint64) for k, _ in parts])
+    counts = np.concatenate([np.asarray(c, dtype=np.int64) for _, c in parts])
+    order = np.argsort(keys, kind="stable")
+    keys, counts = keys[order], counts[order]
+    first = np.ones(len(keys), dtype=bool)
+    first[1:] = keys[1:] != keys[:-1]
+    starts = np.flatnonzero(first)
+    return keys[starts], np.add.reduceat(counts, starts)

@@ -11,8 +11,9 @@ int64 order after flipping bit 63 (:func:`flip_sign`), and an exact mod-2^64
 sum is a wrapping int64 sum.
 
 The ``*_jax_*`` converters translate the JAX package's ``(6, N)`` uint32
-lo/hi column matrix and its limb-sum statistics state into this layout, so a
-record batch or a running state carries across from one package to the other.
+lo/hi column matrix, its limb-sum statistics state and its device histogram
+table into this layout, so a record batch or a running state carries across
+from one package to the other.
 """
 
 from __future__ import annotations
@@ -141,4 +142,22 @@ def stats_state_from_jax(state: dict) -> dict:
         "sums": torch.tensor(
             [to_signed(fold_limbs(sums[f])) for f in range(3)], dtype=torch.int64
         ),
+    }
+
+
+def histogram_state_from_jax(state: dict) -> dict:
+    """The JAX package's ``DeviceHistogram._state`` (``lo``/``hi``/``cnt``
+    uint32 tables, ``n``, ``shard_seen``; its stage must be merged) → the
+    table state ``{keys, cnt, n, shard_seen}`` (int64 CPU tensors) that
+    :meth:`ibu_tpu_torch.parallel.device.DeviceHistogram.resume` continues
+    from."""
+    if np.asarray(state["st_cnt"]).any():
+        raise ValueError("the histogram state has staged batches; merge them first")
+    lo = np.asarray(state["lo"], dtype=np.uint32).astype(np.uint64)
+    hi = np.asarray(state["hi"], dtype=np.uint32).astype(np.uint64)
+    return {
+        "keys": torch.from_numpy((lo | hi << np.uint64(32)).view(np.int64)),
+        "cnt": torch.from_numpy(np.asarray(state["cnt"], dtype=np.uint32).astype(np.int64)),
+        "n": torch.tensor(int(state["n"]), dtype=torch.int64),
+        "shard_seen": torch.tensor(int(state["shard_seen"]), dtype=torch.int64),
     }

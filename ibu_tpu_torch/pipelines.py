@@ -1,11 +1,18 @@
-"""High-level pipelines: sequences ↔ sorted IBU files in one call.
+"""High-level pipelines: sequences ↔ sorted IBU files in one call, file
+statistics and per-barcode counts.
 
-Counterpart of :mod:`ibu_tpu.pipelines` for the record path: the same
-signatures and return types, with ``engine`` in ``{"device", "host"}`` for
-the codec and a ``device`` argument (see
+Counterpart of :mod:`ibu_tpu.pipelines` for the record and histogram paths:
+the same signatures and return types, with ``engine`` in ``{"device",
+"host"}`` and a ``device`` argument (see
 :func:`ibu_tpu_torch.utils.device.resolve_device`). On a CUDA device the
 codec runs the hand-written kernels of :mod:`ibu_tpu_torch.ops.codec_cuda`;
 on the CPU it runs their plain torch versions.
+
+Compressed (gzip/zstd) files reach the device histogram engines as host
+batches, as the JAX package's ``histogram`` command feeds them::
+
+    DeviceHistogram(device=...).run(Reader.from_path(path).batches())
+    sharded_barcode_histogram(Reader.from_path(path).batches(), device=...)
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from ibu_tpu.io.mmap import MmapReader
 from ibu_tpu.io.writer import Writer
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops.codec_cuda import decode_records, encode_records
-from ibu_tpu_torch.ops.stats import sort_records
+from ibu_tpu_torch.ops.stats import group_sum_np, sort_records
 from ibu_tpu_torch.ops.u64 import (
     records_from_tensor,
     records_to_tensor,
@@ -216,3 +223,52 @@ def file_stats(
     else:
         raise ValueError(f"engine must be 'device' or 'native', got {engine!r}")
     return {**stats, "engine": engine}
+
+
+def _batch_uniques(batches):
+    for batch in batches:
+        yield np.unique(np.asarray(batch)["barcode"], return_counts=True)
+
+
+def host_stream_histogram(batches) -> dict[int, int]:
+    """Barcode → count over an iterator of structured record batches, pure
+    host numpy: ``np.unique`` per batch and one final group-sum (the merge
+    of :func:`barcode_counts`'s host engine)."""
+    keys, counts = group_sum_np(_batch_uniques(batches))
+    return dict(zip(keys.tolist(), counts.tolist()))
+
+
+def barcode_counts(
+    in_path: str,
+    engine: str = "host",
+    batch_records: int = 4 * 1024 * 1024,
+    max_uniques_per_shard: int = 1 << 16,
+    device: str | torch.device | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-barcode read counts of a whole file: ``(barcodes, counts)``,
+    uint64 and int64, by ascending barcode. ``"host"`` streams ``np.unique``
+    per mmap batch; ``"device"`` runs
+    :func:`ibu_tpu_torch.parallel.device.sharded_barcode_histogram`, taking
+    the sorted fast path when the header says the file is sorted."""
+    _require_plain(in_path, "barcode_counts")
+    reader = MmapReader(in_path)
+    from ibu_tpu_torch.parallel.device import (
+        record_batches_from_mmap,
+        sharded_barcode_histogram,
+    )
+
+    batches = record_batches_from_mmap(reader, batch_records)
+    if engine == "device":
+        hist = sharded_barcode_histogram(
+            batches,
+            device=device,
+            max_uniques_per_shard=max_uniques_per_shard,
+            sorted_in=reader.header().sorted(),
+        )
+        barcodes = np.fromiter(hist.keys(), dtype=np.uint64, count=len(hist))
+        counts = np.fromiter(hist.values(), dtype=np.int64, count=len(hist))
+        order = np.argsort(barcodes, kind="stable")
+        return barcodes[order], counts[order]
+    if engine != "host":
+        raise ValueError(f"engine must be 'host' or 'device', got {engine!r}")
+    return group_sum_np(_batch_uniques(batches))

@@ -206,3 +206,112 @@ def test_seq_helpers_match():
     with pytest.raises(ValueError) as torch_err:
         TC.seqs_to_rows(["AC", "ACG"])
     assert str(torch_err.value) == str(jax_err.value)
+
+
+# ---------------------------------------------------------------------------
+# single-field codec (encode_planes / decode_planes) and the salt
+# ---------------------------------------------------------------------------
+
+
+def jax_planes_words(rows) -> list[np.ndarray]:
+    """``rows`` through the Pallas kernel (interpret mode) and the lax codec."""
+    planes = jnp.asarray(JC.rows_to_planes(rows))
+    pairs = (JP.encode_planes(planes, tile_n=256, interpret=True), JC.lax_encode_planes(planes))
+    return [JC.pair_to_words(np.asarray(p)) for p in pairs]
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+def test_encode_planes_matches_pallas_and_lax(length):
+    rows = random_rows(N, length, seed=200 + length)
+    got = K.plain_encode_planes(torch.from_numpy(rows.copy()))
+    assert got.dtype == torch.int64 and got.shape == (N,)
+    for want in jax_planes_words(rows):
+        assert np.array_equal(got.numpy().view(np.uint64), want)
+    assert torch.equal(K.encode_planes(torch.from_numpy(rows.copy())), got)
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+def test_decode_planes_matches_pallas_and_lax(length):
+    rng = np.random.default_rng(300 + length)
+    # arbitrary words: bits above 2L must be ignored
+    words = rng.integers(0, 1 << 64, size=N, dtype=np.uint64)
+    pair = jnp.asarray(JC.words_to_pair(words))
+    got = K.decode_planes(torch.from_numpy(words.view(np.int64).copy()), length)
+    assert got.dtype == torch.uint8 and got.shape == (N, length)
+    for want in (JP.decode_planes(pair, length, tile_n=256, interpret=True),
+                 JC.lax_decode_planes(pair, length)):
+        assert np.array_equal(got.numpy(), JC.planes_to_rows(np.asarray(want)))
+    assert torch.equal(K.plain_decode_planes(torch.from_numpy(words.view(np.int64)), length), got)
+
+
+def test_planes_bit63_and_lowercase():
+    t32 = np.full((N, 32), ord("T"), dtype=np.uint8)
+    got = K.encode_planes(torch.from_numpy(t32))
+    assert bool((got == -1).all())  # every bit set, bit 63 included
+    assert all(bool((w == np.uint64((1 << 64) - 1)).all()) for w in jax_planes_words(t32))
+    lower = random_rows(N, 12, seed=9, lowercase=True)
+    upper = np.frombuffer(bytes(lower).upper(), dtype=np.uint8).reshape(lower.shape)
+    got = K.encode_planes(torch.from_numpy(lower.copy()))
+    assert torch.equal(got, K.encode_planes(torch.from_numpy(upper.copy())))
+    for want in jax_planes_words(lower):
+        assert np.array_equal(got.numpy().view(np.uint64), want)
+    assert np.array_equal(K.decode_planes(got, 12).numpy(), upper)
+
+
+@pytest.mark.parametrize("length", [0, 33])
+def test_planes_length_error_text_matches(length):
+    rows = np.full((4, length), ord("A"), dtype=np.uint8)
+    with pytest.raises(ValueError) as jax_err:
+        JP.encode_planes(jnp.asarray(JC.rows_to_planes(rows)), tile_n=256, interpret=True)
+    with pytest.raises(ValueError) as torch_err:
+        K.encode_planes(torch.from_numpy(rows))
+    assert str(torch_err.value) == str(jax_err.value) == f"base count {length} outside 1..=32"
+    with pytest.raises(ValueError) as jax_err:
+        JP.decode_planes(jnp.zeros((2, 4), jnp.uint32), length, interpret=True)
+    with pytest.raises(ValueError) as torch_err:
+        K.decode_planes(torch.zeros(4, dtype=torch.int64), length)
+    assert str(torch_err.value) == str(jax_err.value)
+
+
+SALTS = [1, 0xA5A5A5A5, 0xFFFFFFFF]
+
+
+@pytest.mark.parametrize("salt", SALTS)
+def test_salted_records_match_pallas(salt):
+    bc_rows = random_rows(N, 16, seed=21)
+    umi_rows = random_rows(N, 12, seed=22)
+    idx = random_index(N, seed=23)
+    soa = JP.encode_records(
+        jnp.asarray(JC.rows_to_planes(bc_rows)),
+        jnp.asarray(JC.rows_to_planes(umi_rows)),
+        jnp.asarray(JC.words_to_pair(idx)),
+        tile_n=128,
+        interpret=True,
+        salt=jnp.uint32(salt),
+    )
+    got = K.encode_records(*torch_inputs(bc_rows, umi_rows, idx), salt=salt)
+    assert torch.equal(got, records_from_jax_soa(np.asarray(soa)))
+    assert torch.equal(got, K.plain_encode_records(*torch_inputs(bc_rows, umi_rows, idx), salt))
+    bc_p, umi_p, idx_pair = JP.decode_records(
+        soa, 16, 12, tile_n=128, interpret=True, salt=jnp.uint32(salt)
+    )
+    bc, umi, back = K.decode_records(got, 16, 12, salt=salt)
+    assert np.array_equal(bc.numpy(), JC.planes_to_rows(np.asarray(bc_p)))
+    assert np.array_equal(umi.numpy(), JC.planes_to_rows(np.asarray(umi_p)))
+    assert np.array_equal(back.numpy().view(np.uint64), JC.pair_to_words(np.asarray(idx_pair)))
+    assert np.array_equal(back.numpy().view(np.uint64), idx)
+
+
+def test_salt_none_and_zero_are_unsalted_and_range_checked():
+    inputs = torch_inputs(random_rows(N, 16, seed=24), random_rows(N, 12, seed=25),
+                          random_index(N, seed=26))
+    plain = K.encode_records(*inputs)
+    for salt in (None, 0):
+        assert torch.equal(K.encode_records(*inputs, salt=salt), plain)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(K.decode_records(plain, 16, 12, salt), K.decode_records(plain, 16, 12)))
+    for salt in (-1, 1 << 32):
+        with pytest.raises(ValueError, match="salt"):
+            K.encode_records(*inputs, salt=salt)
+        with pytest.raises(ValueError, match="salt"):
+            K.decode_records(plain, 16, 12, salt=salt)

@@ -1,4 +1,5 @@
-"""The CUDA codec kernels against their plain torch versions, on the card.
+"""The CUDA codec kernels against their plain torch versions, and the
+histogram engines and validation matrix, on the card.
 
 Every test here is marked ``cuda`` and skips where no CUDA card is present.
 The file imports no jax, so on a machine with a card it runs alone:
@@ -17,6 +18,8 @@ from ibu_tpu.constructs.record import make_records
 from ibu_tpu_torch import pipelines as TPL
 from ibu_tpu_torch.ops import codec as TC
 from ibu_tpu_torch.ops import codec_cuda as K
+from ibu_tpu_torch.ops import stats as TS
+from ibu_tpu_torch.parallel import device as TD
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +98,121 @@ def test_unaligned_rows_take_the_byte_path(card):
     idx = torch.arange(n, dtype=torch.int64, device=card)
     records = assert_encode_matches(bc, umi, idx)
     assert torch.equal(K.decode_records(records, L, 12)[0], bc)
+
+
+SALTS = [0, 1, 0xA5A5A5A5, 0xFFFFFFFF]
+
+
+@pytest.mark.parametrize("salt", SALTS)
+def test_salted_kernels_match_plain(card, salt):
+    bc, umi, idx = on(card, rows(N, 16, 13), rows(N, 12, 14), full_range_index(N, 15))
+    got = K.encode_records(bc, umi, idx, salt)
+    want = K.plain_encode_records(bc, umi, idx, salt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    out = K.decode_records(got, 16, 12, salt)
+    plain = K.plain_decode_records(got, 16, 12, salt)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    assert torch.equal(out[2], idx)
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+def test_plane_kernels_match_plain(card, length):
+    (field,) = on(card, rows(N, length, length))
+    words = K.encode_planes(field)
+    assert torch.equal(words, K.plain_encode_planes(field))
+    rng = np.random.default_rng(length)
+    (noise,) = on(card, rng.integers(0, 1 << 64, N, dtype=np.uint64).view(np.int64))
+    for w in (words, noise):  # bits above 2L are ignored
+        assert torch.equal(K.decode_planes(w, length), K.plain_decode_planes(w, length))
+    torch.cuda.synchronize()
+    assert torch.equal(K.decode_planes(words, length), field)
+
+
+def test_plane_kernels_edges(card):
+    lower, mixed = on(card, rows(N, 20, 16, b"acgt"), rows(N, 7, 17, b"ACGTacgt"))
+    for field in (lower, mixed):
+        assert torch.equal(K.encode_planes(field), K.plain_encode_planes(field))
+    assert torch.equal(K.decode_planes(K.encode_planes(lower), 20).cpu(),
+                       torch.from_numpy(rows(N, 20, 16, b"ACGT")))
+    t32 = torch.full((N, 32), ord("T"), dtype=torch.uint8, device=card)
+    assert bool((K.encode_planes(t32) == -1).all())
+    n, L = 4099, 16
+    buf = torch.from_numpy(rows(1, n * L + 1, 18)[0]).to(card)
+    view = buf[1:].view(n, L)  # base not 4-byte aligned: the byte path
+    assert torch.equal(K.encode_planes(view), K.plain_encode_planes(view))
+    assert torch.equal(K.decode_planes(K.encode_planes(view), L), view)
+    empty = torch.empty((0, 16), dtype=torch.uint8, device=card)
+    assert K.encode_planes(empty).shape == (0,)
+    assert K.decode_planes(torch.empty(0, dtype=torch.int64, device=card), 16).shape == (0, 16)
+    torch.cuda.synchronize()
+
+
+def test_histogram_engines_on_card(card, tmp_path):
+    rng = np.random.default_rng(19)
+    n = 50_000
+    pool = rng.integers(0, 1 << 64, 3000, dtype=np.uint64)
+    pool[:2] = (0, (1 << 64) - 1)  # barcode 0 and the u64 maximum
+    records = make_records(pool[rng.integers(0, 3000, n)],
+                           rng.integers(0, 1 << 24, n, dtype=np.uint64),
+                           np.arange(n, dtype=np.uint64))
+    want = TS.barcode_histogram_np(records)
+    for spill, capacity in ((True, 512), (False, 4096)):
+        h = TD.DeviceHistogram(capacity=capacity, max_uniques_per_shard=4096,
+                               merge_every=3, spill=spill, device=card)
+        assert h.run(iter(np.array_split(records, 7))) == want
+    srt = np.sort(records, order=("barcode", "umi", "index"))
+    h = TD.DeviceHistogram(capacity=4096, max_uniques_per_shard=4096, assume_sorted=True,
+                           device=card)
+    assert h.run(iter(np.array_split(srt, 5))) == want
+    lie = TD.DeviceHistogram(capacity=4096, max_uniques_per_shard=4096, assume_sorted=True,
+                             device=card)
+    lie.update(records)
+    with pytest.raises(ValueError, match="sorted"):
+        lie.finalize()
+    path = str(tmp_path / "h.ibu")
+    with Writer.from_path(path, Header.new(32, 12)) as w:
+        w.write_batch(records)
+    got = TD.stream_file_histogram(MmapReader(path), device=card, batch_records=6000,
+                                   max_uniques_per_shard=4096)
+    assert got == want
+    keys, counts = TPL.barcode_counts(path, engine="device", device=card, batch_records=6000,
+                                      max_uniques_per_shard=4096)
+    assert dict(zip(keys.tolist(), counts.tolist())) == want
+    dev = torch.from_numpy(records.view(np.int64).reshape(-1, 3).copy()).to(card)
+    assert TS.table_dict(*TS.molecule_counts(dev, 4096)[:2]) == TS.molecule_counts_np(records)
+    assert (TS.table_dict(*TS.pair_molecule_counts(dev, 1 << 16)[:2])
+            == TS.pair_molecule_counts_np(records))
+
+
+@pytest.mark.parametrize("assume_sorted", [False, True])
+@pytest.mark.parametrize("spill", [True, False])
+def test_histogram_update_never_waits_on_the_card(card, spill, assume_sorted):
+    """No step of ``update_placed``, merges included, synchronises with the
+    card (CUDA's sync debug mode raises on any that does)."""
+    records = np.sort(make_records(
+        np.random.default_rng(20).integers(0, 5000, 60_000, dtype=np.uint64),
+        np.zeros(60_000, np.uint64), np.arange(60_000, dtype=np.uint64)), order="barcode")
+    batches = [torch.from_numpy(b.view(np.int64).reshape(-1, 3).copy()).to(card)
+               for b in np.array_split(records, 7)]
+    h = TD.DeviceHistogram(capacity=8192, max_uniques_per_shard=8192, merge_every=2,
+                           spill=spill, assume_sorted=assume_sorted, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches:
+            h.update_placed(b, bc16=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert h.finalize() == TS.barcode_histogram_np(records)
+
+
+def test_validation_matrix_on_card(card):
+    from ibu_tpu_torch.validate import run_matrix
+
+    results = run_matrix(device=card)
+    assert len(results) == 27 and all(ok for _, ok in results), results
 
 
 def test_launch_counters_and_empty_batch(card, monkeypatch):

@@ -18,6 +18,7 @@ def test_port_loads_no_jax():
         "import sys\n"
         "import ibu_tpu_torch, ibu_tpu_torch.pipelines, ibu_tpu_torch.io.stream\n"
         "import ibu_tpu_torch.parallel.device, ibu_tpu_torch.ops.codec_cuda\n"
+        "import ibu_tpu_torch.validate, ibu_tpu_torch.ops.stats\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -37,8 +38,8 @@ def test_no_jax_import_in_port_sources():
 
 
 def test_cpu_tensors_run_plain_versions_without_launching(monkeypatch):
-    monkeypatch.setattr(K.encode_records, "launches", 0)
-    monkeypatch.setattr(K.decode_records, "launches", 0)
+    for kernel in (K.encode_records, K.decode_records, K.encode_planes, K.decode_planes):
+        monkeypatch.setattr(kernel, "launches", 0)
     rng = np.random.default_rng(0)
     bc = torch.from_numpy(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (50, 16))])
     umi = torch.from_numpy(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (50, 12))])
@@ -47,4 +48,6 @@ def test_cpu_tensors_run_plain_versions_without_launching(monkeypatch):
     assert torch.equal(records, K.plain_encode_records(bc, umi, idx))
     out = K.decode_records(records, 16, 12)
     assert all(torch.equal(a, b) for a, b in zip(out, (bc, umi, idx)))
-    assert (K.encode_records.launches, K.decode_records.launches) == (0, 0)
+    assert torch.equal(K.decode_planes(K.encode_planes(bc), 16), bc)
+    launches = (K.encode_records, K.decode_records, K.encode_planes, K.decode_planes)
+    assert [k.launches for k in launches] == [0, 0, 0, 0]
