@@ -30,14 +30,23 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    sorted flag, a gzip stream into ``DeviceHistogram.run``, and the molecule
    and pair molecule counts of 1M records against their numpy oracles;
 7. time each kernel and its plain version at 10M records with CUDA events
-   over distinct inputs, and check the two agree at that size.
+   over distinct inputs, and check the two agree at that size;
+8. run both codec labs (:mod:`ibu_tpu_torch.labs.sol_lab` and
+   :mod:`ibu_tpu_torch.labs.kernel_lab`) at 10M records: every variant and
+   layout checked exactly against the host oracle, then timed, with the copy
+   floor line. The six lab kernels' launch counters are zeroed just before
+   the labs run and must be positive after them; then every mode of every lab
+   kernel is held exactly against its plain version at 10M records over all
+   byte values, and timed beside it.
 
-The second-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object with one entry per kernel (the four
+production kernels, then the six lab kernels with each mode's figures under
+``modes``); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import shutil
 import subprocess
@@ -51,6 +60,9 @@ import torch
 from ibu_tpu import Header, MmapReader, Reader, Writer, native
 from ibu_tpu.constructs.record import make_records
 from ibu_tpu_torch import pipelines as PL
+from ibu_tpu_torch.labs import _harness as LH
+from ibu_tpu_torch.labs import _kernels as LK
+from ibu_tpu_torch.labs import kernel_lab, sol_lab
 from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops import codec_cuda as K
@@ -82,6 +94,7 @@ KERNELS = {
 }
 SEED = 0
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+ANY_BYTE = bytes(range(256))  # the codec is total and the lab floors see raw bytes
 ROOT = Path(__file__).resolve().parent
 
 
@@ -436,6 +449,96 @@ def time_kernels(card, n: int, launches: dict) -> list[dict]:
     return out
 
 
+def lab_cases(card, n: int) -> list[tuple[str, str, dict, list]]:
+    """``(wrapper, mode label, keyword arguments, 3 input sets)`` for every
+    mode of every lab kernel at the labs' shapes; each wrapper's default mode
+    comes first."""
+    gen = torch.Generator(device=card).manual_seed(SEED + 3)
+    enc = [(card_rows(n, BC_LEN, gen, card, ANY_BYTE), card_rows(n, UMI_LEN, gen, card, ANY_BYTE),
+            card_words(n, gen, card)) for _ in range(3)]
+    recs = {cols: [(card_words(n, gen, card, (cols,)),) for _ in range(3)] for cols in (3, 4)}
+    rows = {"sep": [((bc, umi), idx) for bc, umi, idx in enc],
+            "comb": [((card_rows(n, 32, gen, card, ANY_BYTE),), idx) for _, _, idx in enc]}
+    packed = [(bc.view(torch.int32), umi.view(torch.int32), idx) for bc, umi, idx in enc]
+    cases = [("sol_encode", mode, {"mode": mode}, enc) for mode in LK.ENC_MODES]
+    cases += [("sol_decode", mode, {"mode": mode}, recs[3]) for mode in LK.DEC_MODES]
+    for sol in (False, True):
+        label = "touch" if sol else "real"
+        cases += [("packed_encode", label, {"sol": sol}, packed),
+                  ("packed_decode", label, {"sol": sol}, recs[3])]
+    cases += [("layout_encode", f"{enc_in}{cols}", {"records": cols}, rows[enc_in])
+              for enc_in in ("sep", "comb") for cols in (3, 4)]
+    cases += [("layout_decode", f"{cols}{'comb' if comb else 'sep'}", {"comb": comb}, recs[cols])
+              for comb in (False, True) for cols in (3, 4)]
+    return cases
+
+
+def tensor_bytes(*parts) -> int:
+    """Bytes of every tensor in ``parts``, nested tuples included."""
+    total = 0
+    for part in parts:
+        if isinstance(part, torch.Tensor):
+            total += part.numel() * part.element_size()
+        elif isinstance(part, (tuple, list)):
+            total += tensor_bytes(*part)
+    return total
+
+
+def labs_phase(card, n: int) -> list[dict]:
+    """Phase 8: both codec labs at the main path's size, then every lab
+    kernel against its plain version."""
+    for kernel, _, _ in LK.KERNELS.values():
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    sol_rows, halves, sol_failed = sol_lab.run(card, n, list(sol_lab.VARIANTS), log=log)
+    layout_rows, layout_failed = kernel_lab.run(card, n, log=log)
+    torch.cuda.synchronize()
+    launches = {name: kernel.launches for name, (kernel, _, _) in LK.KERNELS.items()}
+    log(f"labs: {len(sol_rows) - 1} sol_lab variants and {len(layout_rows) - 2} kernel_lab rows "
+        f"checked and timed ({time.perf_counter() - t0:.2f} s); launches {launches}")
+    require(not sol_failed and not layout_failed,
+            f"every lab variant matches the host oracle (failed: {sol_failed + layout_failed})")
+    require(all(v > 0 for v in launches.values()), "every lab kernel ran in the labs")
+    for line in sol_lab.report(sol_rows, halves):
+        log(f"sol_lab: {line}")
+    for line in LH.table(layout_rows, layout_rows[0].ms) + [LH.floor_line(layout_rows[0])]:
+        log(f"kernel_lab: {line}")
+
+    entries = {name: {} for name in LK.KERNELS}
+    for name, label, kwargs, sets in lab_cases(card, n):
+        kernel, plain, _ = LK.KERNELS[name]
+        kernel, plain = functools.partial(kernel, **kwargs), functools.partial(plain, **kwargs)
+        got = as_tuple(kernel(*sets[0]))
+        err = max_abs_err(got, as_tuple(plain(*sets[0])))
+        torch.cuda.synchronize()
+        require(err == 0.0, f"{name} {label} agrees with its plain version at n={n}")
+        ms, plain_ms = time_pair(kernel, plain, sets, iters=20, plain_iters=5)
+        moved = tensor_bytes(sets[0], got) / n
+        entries[name][label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "bytes_per_record": moved, "gbps": moved * n / (ms * 1e6),
+                                "plain_gbps": moved * n / (plain_ms * 1e6)}
+        log(f"timing: {name} {label} n={n}: kernel {ms:.4f} ms ({moved * n / (ms * 1e6):.1f} GB/s "
+            f"at {moved:g} B/record), plain {plain_ms:.4f} ms, exact")
+    out = []
+    for name, modes in entries.items():
+        label, first = next(iter(modes.items()))
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ibu_tpu_torch/csrc/codec_lab.cu",
+            "replaces": LK.KERNELS[name][2],
+            "launches": launches[name],
+            "max_abs_err": max(m["max_abs_err"] for m in modes.values()),
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "gbps": first["gbps"],
+            "plain_gbps": first["plain_gbps"],
+            "mode": label,
+            "modes": modes,
+        })
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -479,6 +582,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = time_kernels(card, N_MAIN, launches)
+    kernels += labs_phase(card, N_MAIN)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

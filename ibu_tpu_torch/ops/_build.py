@@ -1,13 +1,15 @@
-"""Build and load the CUDA codec library (``csrc/codec.cu``).
+"""Build and load the CUDA library (``csrc/codec.cu`` and ``csrc/codec_lab.cu``).
 
 ``nvcc`` compiles the sources of this checkout into a shared library with a
-plain C interface, which :func:`load` opens with ``ctypes``. The library is
-built at first use into ``build/ibu_tpu_torch/`` beside the package, named by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads at once. Each build writes a private temporary file and
-renames it into place, so concurrent first uses never see a half-written
-library. ``nvcc``'s report (``-Xptxas -v``: registers, shared memory and
-spills of each kernel) is kept beside the library as ``<name>.log``.
+plain C interface, which :func:`load` opens with ``ctypes``: one ``nvcc`` per
+``.cu`` file, all started together, then one link. The library is built at
+first use into ``build/ibu_tpu_torch/`` beside the package, named by a hash of
+every ``.cu`` and ``.cuh`` file under ``csrc/`` and the flags, so an edited
+source or header rebuilds and an unchanged tree loads at once. Each build
+writes private temporary files and renames the library into place, so
+concurrent first uses never see a half-written library. ``nvcc``'s report
+(``-Xptxas -v``: registers, shared memory and spills of each kernel) is kept
+beside the library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ import uuid
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "codec.cu",)
+CSRC = _PKG / "csrc"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
 BUILD_DIR = _PKG.parent / "build" / "ibu_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -54,8 +57,8 @@ def find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libibu_codec_{h.hexdigest()[:16]}.so"
 
 
@@ -66,20 +69,34 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.{uuid.uuid4().hex}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    stem = f".{lib.name}.{os.getpid()}.{uuid.uuid4().hex}"
+    tmp = lib.with_name(stem + ".tmp")
+    objs = [lib.with_name(f"{stem}.{src.stem}.o") for src in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objs)]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise CudaBuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr[-4000:]}"
-            )
-        lib.with_suffix(".log").write_text(proc.stderr)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        # wait for every compile before reporting a failure, so none outlives the build
+        report = [proc.communicate()[1] for proc in procs]
+        for cmd, proc, err in zip(compiles, procs, report):
+            _check(proc.returncode, cmd, err)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check(proc.returncode, link, proc.stderr)
+        lib.with_suffix(".log").write_text("".join(report) + proc.stderr)
         os.replace(tmp, lib)
     finally:
-        tmp.unlink(missing_ok=True)
+        for path in (tmp, *objs):
+            path.unlink(missing_ok=True)
     return lib
+
+
+def _check(returncode: int, cmd: list[str], stderr: str) -> None:
+    if returncode != 0:
+        raise CudaBuildError(
+            f"nvcc failed ({returncode}): {' '.join(cmd)}\n{stderr[-4000:]}"
+        )
 
 
 def load() -> ctypes.CDLL:
@@ -97,6 +114,11 @@ def load() -> ctypes.CDLL:
     lib.ibu_encode_planes.restype = i32
     lib.ibu_decode_planes.argtypes = [ptr, ptr, i64, i32, ptr]
     lib.ibu_decode_planes.restype = i32
+    # a, b, index, out | records, a, b, index; n, mode, layout, cols, block, stream
+    lib.ibu_lab_encode.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
+    lib.ibu_lab_encode.restype = i32
+    lib.ibu_lab_decode.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
+    lib.ibu_lab_decode.restype = i32
     lib.ibu_cuda_error_string.argtypes = [i32]
     lib.ibu_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,5 +1,5 @@
-"""The CUDA codec kernels against their plain torch versions, and the
-histogram engines and validation matrix, on the card.
+"""The CUDA codec kernels and the codec labs' kernels against their plain
+torch versions, and the histogram engines and validation matrix, on the card.
 
 Every test here is marked ``cuda`` and skips where no CUDA card is present.
 The file imports no jax, so on a machine with a card it runs alone:
@@ -16,6 +16,8 @@ import torch
 from ibu_tpu import Header, MmapReader, Writer
 from ibu_tpu.constructs.record import make_records
 from ibu_tpu_torch import pipelines as TPL
+from ibu_tpu_torch.labs import _kernels as LK
+from ibu_tpu_torch.labs import kernel_lab, sol_lab
 from ibu_tpu_torch.ops import codec as TC
 from ibu_tpu_torch.ops import codec_cuda as K
 from ibu_tpu_torch.ops import stats as TS
@@ -251,3 +253,114 @@ def test_pipelines_on_card(card, tmp_path):
     assert got["count"] == n
     assert got["barcode_sum"] == int(oracle["barcode"].sum(dtype=object)) % (1 << 64)
     assert got["index_sum"] == n * (n - 1) // 2
+
+
+# ---------------------------------------------------------------------------
+# the codec labs' kernels (ibu_tpu_torch/labs, csrc/codec_lab.cu)
+# ---------------------------------------------------------------------------
+
+BLOCKS = [128, 256, 512]
+ANY_BYTE = bytes(range(256))  # the codec is total and the floors see raw bytes
+
+
+def lab_rows(card, seed):
+    return on(card, rows(N, 16, seed, ANY_BYTE), rows(N, 12, seed + 1, ANY_BYTE),
+              full_range_index(N, seed + 2))
+
+
+def random_records(card, seed, cols=3):
+    rng = np.random.default_rng(seed)
+    return on(card, rng.integers(0, 1 << 64, (N, cols), dtype=np.uint64).view(np.int64))[0]
+
+
+def assert_all_equal(got, want):
+    torch.cuda.synchronize()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("mode", LK.ENC_MODES)
+def test_lab_sol_encode_matches_plain(card, mode, block):
+    bc, umi, idx = lab_rows(card, 40)
+    assert_all_equal(LK.sol_encode(bc, umi, idx, mode, block),
+                     LK.plain_sol_encode(bc, umi, idx, mode))
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("mode", LK.DEC_MODES)
+def test_lab_sol_decode_matches_plain(card, mode, block):
+    records = random_records(card, 41)
+    assert_all_equal(LK.sol_decode(records, mode, block), LK.plain_sol_decode(records, mode))
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("sol", [False, True])
+def test_lab_packed_matches_plain(card, sol, block):
+    bc, umi, idx = lab_rows(card, 42)
+    bcp, umip = bc.view(torch.int32), umi.view(torch.int32)
+    assert_all_equal(LK.packed_encode(bcp, umip, idx, sol, block),
+                     LK.plain_packed_encode(bcp, umip, idx, sol))
+    records = random_records(card, 43)
+    assert_all_equal(LK.packed_decode(records, sol, block), LK.plain_packed_decode(records, sol))
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("cols", [3, 4])
+@pytest.mark.parametrize("enc_in", ["sep", "comb"])
+def test_lab_layout_encode_matches_plain(card, enc_in, cols, block):
+    bc, umi, idx = lab_rows(card, 44)
+    ascii_rows = (bc, umi) if enc_in == "sep" else on(card, rows(N, 32, 47, ANY_BYTE))
+    assert_all_equal(LK.layout_encode(ascii_rows, idx, cols, block),
+                     LK.plain_layout_encode(ascii_rows, idx, cols))
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("cols", [3, 4])
+@pytest.mark.parametrize("comb", [False, True])
+def test_lab_layout_decode_matches_plain(card, comb, cols, block):
+    records = random_records(card, 45 + cols, cols)  # a (N, 4) word 3 is ignored
+    assert_all_equal(LK.layout_decode(records, comb, block), LK.plain_layout_decode(records, comb))
+
+
+def test_lab_misaligned_row_views(card):
+    """Row views whose base is 1 or 4 bytes past a 16-byte boundary take the
+    byte and word paths."""
+    n = 4099
+    buf = torch.from_numpy(rows(1, 32 * n + 16, 48, ANY_BYTE)[0]).to(card)
+    idx = torch.arange(n, dtype=torch.int64, device=card)
+    for off in (1, 4):
+        bc = buf[off:off + 16 * n].view(n, 16)
+        umi = buf[off:off + 12 * n].view(n, 12)
+        for mode in LK.ENC_MODES:
+            assert_all_equal(LK.sol_encode(bc, umi, idx, mode), LK.plain_sol_encode(bc, umi, idx, mode))
+        comb = (buf[off:off + 32 * n].view(n, 32),)
+        for cols in (3, 4):
+            assert_all_equal(LK.layout_encode(comb, idx, cols), LK.plain_layout_encode(comb, idx, cols))
+            assert_all_equal(LK.layout_encode((bc, umi), idx, cols),
+                             LK.plain_layout_encode((bc, umi), idx, cols))
+
+
+def test_lab_launch_counters_and_empty(card, monkeypatch):
+    for name, (kernel, _, _) in LK.KERNELS.items():
+        monkeypatch.setattr(kernel, "launches", 0)
+    empty = torch.empty((0,), dtype=torch.int64, device=card)
+    assert LK.sol_encode(torch.empty((0, 16), dtype=torch.uint8, device=card),
+                         torch.empty((0, 12), dtype=torch.uint8, device=card), empty).shape == (0, 3)
+    assert LK.sol_encode.launches == 0
+    bc, umi, idx = lab_rows(card, 49)
+    records = LK.sol_encode(bc, umi, idx)
+    LK.sol_decode(records)
+    LK.packed_decode(LK.packed_encode(bc.view(torch.int32), umi.view(torch.int32), idx))
+    LK.layout_decode(LK.layout_encode((bc, umi), idx))
+    torch.cuda.synchronize()
+    assert {name: k.launches for name, (k, _, _) in LK.KERNELS.items()} == dict.fromkeys(LK.KERNELS, 1)
+
+
+def test_labs_run_on_card(card, capsys):
+    assert sol_lab.main(["--records", str(N), "--runs", "2"]) == 0
+    assert kernel_lab.main(["--records", str(N), "--runs", "2"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("copy floor (sol_touch)") == 2 and "FAILED" not in out
