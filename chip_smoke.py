@@ -37,11 +37,26 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    floor line. The six lab kernels' launch counters are zeroed just before
    the labs run and must be positive after them; then every mode of every lab
    kernel is held exactly against its plain version at 10M records over all
-   byte values, and timed beside it.
+   byte values, and timed beside it;
+9. run the radix-sort lab (:mod:`ibu_tpu_torch.labs.sort_lab`) at 2^24
+   keys: its three kernels checked exactly against the numpy oracles, then
+   timed beside ``torch.sort`` and the production three-key sort, with the
+   verdict line. The three kernels' launch counters are zeroed just before the
+   lab runs and must be positive after it; then each kernel is held exactly
+   against its plain version on the lab's keys, on keys that all share one low
+   byte and on 16384 keys, and timed beside it, with its device time from
+   ``torch.profiler``.
 
 The second-to-last line is a JSON object with one entry per kernel (the four
-production kernels, then the six lab kernels with each mode's figures under
-``modes``); the last line is ``{"ok": true, "device": {...}}``.
+production kernels, the six codec lab kernels with each mode's figures under
+``modes``, then the three sort lab kernels). Each entry has its time
+(``ms``), its plain version's (``plain_ms``), its bound (``bound_ms``: the
+bytes it must move, each input read once and each output written once, over
+the H100's 3350 GB/s; the sort lab's own count for its kernels) and, where
+PyTorch computes the same function, that time (``library_ms``, else null:
+for ``digit_histogram`` the index pass and ``torch.bincount`` together, the
+call alone under ``bincount_ms``). The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -57,12 +72,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ibu_tpu import Header, MmapReader, Reader, Writer, native
-from ibu_tpu.constructs.record import make_records
+from ibu_tpu_torch import Header, MmapReader, Reader, Writer, make_records, native
 from ibu_tpu_torch import pipelines as PL
 from ibu_tpu_torch.labs import _harness as LH
 from ibu_tpu_torch.labs import _kernels as LK
-from ibu_tpu_torch.labs import kernel_lab, sol_lab
+from ibu_tpu_torch.labs import _sort_kernels as SK
+from ibu_tpu_torch.labs import kernel_lab, sol_lab, sort_lab
 from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops import codec_cuda as K
@@ -77,6 +92,7 @@ N_CHECK = 100_003  # not a multiple of the 256-thread block
 N_GZIP = 2_000_000
 N_MOLECULES = 1_000_000
 N_LIE = 1_000_000
+N_SORT_LAB = 1 << 24  # the sort lab's default
 BARCODE_POOL = 50_000  # a single-cell run's cells plus background
 GENES = 2_000  # index pool of the molecule phase (the count matrix's columns)
 BC_LEN, UMI_LEN = 16, 12
@@ -404,6 +420,26 @@ def time_pair(kernel, plain, sets, iters: int, plain_iters: int):
     return run(kernel, iters), run(plain, plain_iters)
 
 
+def device_ms(fn, sets, iters: int = 20) -> float | None:
+    """Mean device time per call of the kernels ``fn`` launches, summed over
+    ``torch.profiler``'s record of each kernel in ``iters`` back-to-back
+    calls: their own time, with no host time or idle gaps in it. ``None``
+    when the profiler recorded no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    kernels = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    return sum(r.elapsed_us() for r in kernels) / iters / 1e3
+
+
 def as_tuple(out):
     return list(out) if isinstance(out, tuple) else [out]
 
@@ -426,14 +462,17 @@ def time_kernels(card, n: int, launches: dict) -> list[dict]:
     out = []
     for name, (kernel, plain, line) in KERNELS.items():
         inputs, nbytes = sets[name]
-        err = max_abs_err(as_tuple(kernel(*inputs[0])), as_tuple(plain(*inputs[0])))
+        got = as_tuple(kernel(*inputs[0]))
+        err = max_abs_err(got, as_tuple(plain(*inputs[0])))
         torch.cuda.synchronize()
         require(err == 0.0, f"{name} agrees with its plain version at n={n}")
         ms, plain_ms = time_pair(kernel, plain, inputs, iters=20, plain_iters=5)
         gbps = nbytes * n / (ms * 1e6)
         plain_gbps = nbytes * n / (plain_ms * 1e6)
+        bound = bound_ms(inputs[0], got)
         log(f"timing: {name} n={n}: kernel {ms:.4f} ms ({gbps:.1f} GB/s at "
-            f"{nbytes} B/record), plain {plain_ms:.4f} ms ({plain_gbps:.1f} GB/s)")
+            f"{nbytes} B/record), plain {plain_ms:.4f} ms ({plain_gbps:.1f} GB/s), "
+            f"bound {bound:.4f} ms")
         out.append({
             "name": name,
             "route": "cuda",
@@ -443,6 +482,9 @@ def time_kernels(card, n: int, launches: dict) -> list[dict]:
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": None,  # no one PyTorch call packs or unpacks 2-bit bases
             "gbps": gbps,
             "plain_gbps": plain_gbps,
         })
@@ -484,6 +526,14 @@ def tensor_bytes(*parts) -> int:
     return total
 
 
+def bound_ms(inputs, outputs) -> float:
+    """The least time the card could take: every input tensor read once and
+    every output written once at the H100's published 3350 GB/s
+    (:data:`ibu_tpu_torch.labs._harness.PEAK_GBPS`). The kernels here do a
+    few integer operations per byte, so bytes, not operations, bound them."""
+    return tensor_bytes(inputs, outputs) / (LH.PEAK_GBPS * 1e6)
+
+
 def labs_phase(card, n: int) -> list[dict]:
     """Phase 8: both codec labs at the main path's size, then every lab
     kernel against its plain version."""
@@ -515,6 +565,7 @@ def labs_phase(card, n: int) -> list[dict]:
         ms, plain_ms = time_pair(kernel, plain, sets, iters=20, plain_iters=5)
         moved = tensor_bytes(sets[0], got) / n
         entries[name][label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms(sets[0], got),
                                 "bytes_per_record": moved, "gbps": moved * n / (ms * 1e6),
                                 "plain_gbps": moved * n / (plain_ms * 1e6)}
         log(f"timing: {name} {label} n={n}: kernel {ms:.4f} ms ({moved * n / (ms * 1e6):.1f} GB/s "
@@ -531,11 +582,102 @@ def labs_phase(card, n: int) -> list[dict]:
             "max_abs_err": max(m["max_abs_err"] for m in modes.values()),
             "ms": first["ms"],
             "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,  # no one PyTorch call computes a codec mode
             "gbps": first["gbps"],
             "plain_gbps": first["plain_gbps"],
             "mode": label,
             "modes": modes,
         })
+    return out
+
+
+def sort_lab_phase(card, n: int) -> list[dict]:
+    """Phase 9: the radix-sort lab at ``n`` keys as ``python -m
+    ibu_tpu_torch.labs.sort_lab`` runs it, then each of its kernels against
+    its plain version."""
+    for kernel, _, _ in SK.KERNELS.values():
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    rows, failed = sort_lab.run(card, n, log=lambda line: log(f"sort_lab: {line}"))
+    torch.cuda.synchronize()
+    launches = {name: kernel.launches for name, (kernel, _, _) in SK.KERNELS.items()}
+    log(f"sort_lab: checked and timed at {n} keys ({time.perf_counter() - t0:.2f} s); "
+        f"launches {launches}")
+    require(not failed, f"every sort lab kernel matches the numpy oracles (failed: {failed})")
+    require(all(v > 0 for v in launches.values()), "every sort lab kernel ran in the lab")
+    for line in sort_lab.report(rows):
+        log(f"sort_lab: {line}")
+    lab = {row["name"]: row for row in rows}
+
+    def offsets(m: int) -> torch.Tensor:
+        return torch.from_numpy(sort_lab.make_offsets(m // SK.TILE)).to(card)
+
+    def args(name: str, keys: torch.Tensor, offs: torch.Tensor) -> tuple:
+        return (keys, offs) if name == "dynamic_store" else (keys,)
+
+    offs = offsets(n)
+    keys = sort_lab.make_keys(n, 1, card)
+    cases = [("lab keys", keys, offs),
+             ("one low byte", (keys & -256) | 0x5A, offs),
+             ("16384 keys", sort_lab.make_keys(SK.KEYS_MULTIPLE, 2, card), offsets(SK.KEYS_MULTIPLE))]
+    timed_sets = [sort_lab.make_keys(n, seed, card) for seed in sort_lab.TIMED_SEEDS]
+    out = []
+    for (name, (kernel, plain, line)), row in zip(SK.KERNELS.items(), sort_lab.KERNEL_ROWS):
+        err = 0.0
+        for label, case_keys, case_offs in cases:
+            case = args(name, case_keys, case_offs)
+            err = max(err, max_abs_err(as_tuple(kernel(*case)), as_tuple(plain(*case))))
+            torch.cuda.synchronize()
+            require(err == 0.0, f"{name} agrees with its plain version on {label}")
+        sets = [args(name, k, offs) for k in timed_sets]
+        ms, plain_ms = time_pair(kernel, plain, sets, iters=20, plain_iters=5)
+        bound = lab[row]["bound_ms"]
+        profiled = device_ms(kernel, sets)
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "ibu_tpu_torch/csrc/sort_lab.cu",
+            "replaces": line,
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": None,  # no one PyTorch call gives per-tile ranks or ordered stores
+            "lab_ms": lab[row]["ms"],
+            "device_ms": profiled,
+        }
+        lib_note = ""
+        if name == "digit_histogram":
+            tiles = n // SK.TILE
+
+            def bincount(index, tiles=tiles):
+                return torch.bincount(index, minlength=tiles * SK.DIGITS)
+
+            def index_bincount(k):
+                return bincount(SK._tile_digits(k))
+
+            want = index_bincount(sets[0][0]).view(tiles, SK.DIGITS).to(torch.int32)
+            require(torch.equal(kernel(*sets[0]), want), "torch.bincount gives the histogram")
+            # no one call maps keys to per-tile counts: library_ms times the
+            # index pass and torch.bincount together, bincount_ms the call alone
+            # on an index made beforehand
+            entry["library_ms"], _ = time_pair(index_bincount, index_bincount,
+                                               [s[0:1] for s in sets], 20, 1)
+            entry["bincount_ms"], _ = time_pair(bincount, bincount,
+                                                [(SK._tile_digits(s[0]),) for s in sets], 20, 1)
+            # the lab's yardsticks: whole sorts, not calls computing the histogram
+            entry["yardstick_ms"] = {sort_lab.SORT1: lab[sort_lab.SORT1]["ms"],
+                                     sort_lab.SORT3: lab[sort_lab.SORT3]["ms"]}
+            lib_note = (f", index + torch.bincount {entry['library_ms']:.4f} ms "
+                        f"(torch.bincount alone {entry['bincount_ms']:.4f} ms)")
+        prof_note = "not measured" if profiled is None else f"{profiled:.4f} ms"
+        log(f"timing: {name} n={n}: kernel {ms:.4f} ms (profiler: {prof_note}), plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms{lib_note}, exact on {len(cases)} cases")
+        out.append(entry)
     return out
 
 
@@ -583,6 +725,7 @@ def main() -> int:
 
     kernels = time_kernels(card, N_MAIN, launches)
     kernels += labs_phase(card, N_MAIN)
+    kernels += sort_lab_phase(card, N_SORT_LAB)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -5,7 +5,7 @@ structured records is copied into one of a ring of pinned host buffers and
 sent to the card as an ``(B, 3)`` int64 tensor by an asynchronous copy on a
 side stream, so the copies of upcoming batches overlap the consumer's work on
 the current one. Up to ``prefetch`` batches are in flight
-(:func:`ibu_tpu.io.stream.prefetched`).
+(:func:`prefetched`, a copy of :func:`ibu_tpu.io.stream.prefetched`).
 
 Ordering rules the ring keeps:
 
@@ -26,16 +26,44 @@ the copy (:func:`ibu_tpu_torch.parallel.device.bc16_hint`).
 
 from __future__ import annotations
 
+import os
+from collections import deque
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
-from ibu_tpu.io.mmap import STREAM_BATCH_RECORDS, STREAM_PREFETCH, MmapReader
-from ibu_tpu.io.stream import prefetched
+from ibu_tpu_torch.io.mmap import STREAM_BATCH_RECORDS, STREAM_PREFETCH, MmapReader
 from ibu_tpu_torch.ops.u64 import wire_view
 from ibu_tpu_torch.parallel.device import bc16_hint, record_batches_from_mmap
 from ibu_tpu_torch.utils.device import resolve_device
+
+
+def prefetched(items, depth: int):
+    """Iterate ``items`` with up to ``depth`` values produced ahead of the
+    consumer. The queue refills both before and after each yield, so the
+    production of upcoming items (mmap faults, copies queued on the card)
+    overlaps the consumer's work on the current one."""
+    depth = max(1, depth)
+    queue: deque = deque()
+    it = iter(items)
+    exhausted = False
+
+    def fill():
+        nonlocal exhausted
+        while not exhausted and len(queue) < depth:
+            try:
+                queue.append(next(it))
+            except StopIteration:
+                exhausted = True
+
+    while True:
+        fill()
+        if not queue:
+            return
+        item = queue.popleft()
+        fill()
+        yield item
 
 
 class DeviceStream:
@@ -110,12 +138,12 @@ def stream_file(
     prefetch: int = STREAM_PREFETCH,
     with_hint: bool = False,
 ) -> DeviceStream:
-    """Stream an IBU file to the device in ``batch_records`` batches; the
-    last batch is ragged."""
+    """Stream an IBU file (a path, or an open :class:`MmapReader`) to the
+    device in ``batch_records`` batches; the last batch is ragged."""
     reader = (
-        path_or_reader
-        if isinstance(path_or_reader, MmapReader)
-        else MmapReader(path_or_reader)
+        MmapReader(path_or_reader)
+        if isinstance(path_or_reader, (str, os.PathLike))
+        else path_or_reader
     )
     return DeviceStream(
         record_batches_from_mmap(reader, batch_records),

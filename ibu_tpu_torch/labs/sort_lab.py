@@ -1,0 +1,273 @@
+"""Radix-sort lab for the H100: can radix-sort ingredients beat the built-in sort?
+
+    python -m ibu_tpu_torch.labs.sort_lab [--records N] [--runs R]
+    python -m ibu_tpu_torch.labs.sort_lab --device cpu --records 32768
+
+The Hopper counterpart of ``tools/pallas_sort_lab.py``. An 8-bit-digit LSD
+radix sort of u32 keys takes 4 passes, and each pass must (a) compute every
+key's destination rank and (b) move each key to a data-dependent place. The
+lab times each ingredient as a kernel of its own
+(:mod:`ibu_tpu_torch.labs._sort_kernels`, ``csrc/sort_lab.cu``), because the
+composition can never beat its slowest part:
+
+- K1 ``digit_histogram``: per-tile 256-bin digit counts, the counting phase
+  every radix formulation shares;
+- K2 ``rank_cumsum``: each key's stable rank among the keys of its tile with
+  the same digit;
+- K3 ``dynamic_store``: 256 eight-row stores per tile at data-dependent
+  offsets, the move phase at the TPU lab's granularity.
+
+The yardsticks are ``torch.sort`` of the keys in unsigned order (one key,
+the TPU lab's ``lax.sort`` 1-op) and the three-key lexicographic sort
+``(x, (x * 40503) & 0xFFFFFF, iota)`` through the port's production route,
+stable sign-flipped passes (:func:`ibu_tpu_torch.ops.stats._lex_order`), in
+place of the TPU lab's ``lax.sort`` 3-op. ``torch.sort`` is a yardstick
+only, never a port of any kernel.
+
+Keys are made on the device, key ``i`` of seed ``s`` being
+``((i * 2654435761) ^ (i >> 3) ^ s) mod 2^32``: seed 0 for the checks, seeds
+100, 101, 102 for the timed runs. K3's offsets are
+``default_rng(0).permutation(tiles * 256) % 9``. Each kernel is checked
+exactly against numpy oracles over every key (``bincount``; a stable
+argsort rank, and on the first tile the sequential count of the TPU lab;
+the stores in order) before anything is timed; a failed check exits 1.
+Times are CUDA events over the 3 timed key sets, runs interleaved after an
+untimed warm-up (:func:`ibu_tpu_torch.labs._harness.time_interleaved`).
+Each row's bound is the bytes the function must move over the H100's
+3350 GB/s. The verdict line gives the per-pass floor ``max(K2, K3)``, the
+4-pass radix time it implies, and its ratio to the one-key sort. Without a
+CUDA card the lab exits 2 unless given ``--device cpu``, which runs the plain
+versions through the checks and prints no timing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from ibu_tpu_torch.labs import _harness as H
+from ibu_tpu_torch.labs import _sort_kernels as K
+from ibu_tpu_torch.ops.stats import _lex_order
+
+DEFAULT_KEYS = 1 << 24
+CHECK_SEED = 0
+TIMED_SEEDS = (100, 101, 102)
+HASH = 2654435761
+UMI_MULT = 40503
+SIGN32 = -(1 << 31)
+KERNEL_ROWS = ("K1 digit_histogram", "K2 rank_cumsum", "K3 dynamic_store")
+SORT1, SORT3 = "torch.sort 1-key", "3-key sort (production)"
+
+
+def make_keys(n: int, seed: int, device: torch.device) -> torch.Tensor:
+    """``(n,)`` int32 keys of the lab formula, made on ``device``."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    x = ((i * HASH) ^ (i >> 3) ^ seed) & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def make_offsets(tiles: int) -> np.ndarray:
+    """K3's ``(tiles * 8, 128)`` int32 offset rows: tile ``t``'s 256 offsets
+    in rows ``[8t, 8t + 2)``, the rest zero padding
+    (``tools/pallas_sort_lab.py:269-273``)."""
+    offs = (np.random.default_rng(0).permutation(tiles * K.DIGITS)
+            % (K.MAX_OFFSET + 1)).reshape(tiles, K.DIGITS).astype(np.int32)
+    pad = np.zeros((tiles * K.OFF_ROWS, K.LANES), np.int32)
+    pad.reshape(tiles, K.OFF_ROWS * K.LANES)[:, :K.DIGITS] = offs
+    return pad
+
+
+# ---------------------------------------------------------------------------
+# numpy oracles (keys as uint32)
+# ---------------------------------------------------------------------------
+
+
+def _groups(keys: np.ndarray) -> np.ndarray:
+    tiles = len(keys) // K.TILE
+    return ((keys & 0xFF).astype(np.int64).reshape(tiles, K.TILE)
+            + np.arange(tiles, dtype=np.int64)[:, None] * K.DIGITS).reshape(-1)
+
+
+def np_digit_histogram(keys: np.ndarray) -> np.ndarray:
+    tiles = len(keys) // K.TILE
+    return np.bincount(_groups(keys), minlength=tiles * K.DIGITS).reshape(tiles, K.DIGITS)
+
+
+def np_rank(keys: np.ndarray) -> np.ndarray:
+    """Stable rank of every key among its tile's keys of the same digit."""
+    group = _groups(keys)
+    order = np.argsort(group, kind="stable")
+    ordered = group[order]
+    rank = np.empty(len(keys), np.int64)
+    rank[order] = np.arange(len(keys)) - np.searchsorted(ordered, ordered)
+    return rank
+
+
+def np_rank_sequential(tile: np.ndarray) -> np.ndarray:
+    """One tile's ranks by counting key by key (``tools/pallas_sort_lab.py:238-245``)."""
+    want = np.zeros(len(tile), np.int64)
+    seen: dict = {}
+    for i, d in enumerate((tile & 0xFF).tolist()):
+        want[i] = seen.get(d, 0)
+        seen[d] = seen.get(d, 0) + 1
+    return want
+
+
+def np_dynamic_store(keys: np.ndarray, offs: np.ndarray) -> np.ndarray:
+    """The 256 stores of every tile, in order, over all tiles at once."""
+    tiles = len(keys) // K.TILE
+    src = keys.reshape(tiles, K.ROWS, K.LANES)
+    off = offs.reshape(tiles, K.OFF_ROWS * K.LANES)[:, :K.DIGITS].astype(np.int64)
+    out = np.zeros((tiles, K.ROWS, K.LANES), keys.dtype)
+    every = np.arange(tiles)[:, None]
+    for c in range(K.DIGITS):
+        inside = (off[:, c] >= 0) & (off[:, c] <= K.MAX_OFFSET)
+        g = c % (K.ROWS // 8)
+        dest = off[inside, c][:, None] + np.arange(8)
+        out[every[inside], dest] = src[inside, 8 * g:8 * g + 8]
+    return out.reshape(tiles * K.ROWS, K.LANES)
+
+
+def check(keys: torch.Tensor, offs: torch.Tensor, log=print) -> list[str]:
+    """Each wrapper's output on ``keys`` against the numpy oracles over
+    every key; returns the kernels that disagreed."""
+    host = keys.cpu().numpy().view(np.uint32)
+    n = len(host)
+    hist = K.digit_histogram(keys).cpu().numpy()
+    rank = K.rank_cumsum(keys).cpu().numpy().reshape(-1)
+    stored = K.dynamic_store(keys, offs).cpu().numpy().view(np.uint32)
+    results = {
+        "digit_histogram": np.array_equal(hist, np_digit_histogram(host)),
+        "rank_cumsum": (np.array_equal(rank, np_rank(host))
+                        and np.array_equal(rank[:K.TILE], np_rank_sequential(host[:K.TILE]))),
+        "dynamic_store": np.array_equal(stored, np_dynamic_store(host, offs.cpu().numpy())),
+    }
+    for name, ok in results.items():
+        log(f"{name}: {'oracle-exact' if ok else 'FAILED the oracle check'} over {n} keys")
+    return [name for name, ok in results.items() if not ok]
+
+
+# ---------------------------------------------------------------------------
+# the yardsticks and the timed rows
+# ---------------------------------------------------------------------------
+
+
+def sort1(keys: torch.Tensor) -> torch.Tensor:
+    """The keys in unsigned order, as int32 bit patterns sign-flipped for
+    the sort (one ``torch.sort``)."""
+    return torch.sort(keys ^ SIGN32).values
+
+
+def sort3(keys: torch.Tensor) -> torch.Tensor:
+    """``x`` sorted by ``(x, (x * 40503) & 0xFFFFFF, iota)`` through the
+    production route's stable passes; ``x`` as int64."""
+    x = keys.to(torch.int64) & 0xFFFFFFFF
+    umi = (x * UMI_MULT) & 0xFFFFFF
+    iota = torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
+    return x[_lex_order([x, umi, iota], [32, 24, 32])]
+
+
+def bound_bytes(n: int) -> dict[str, int]:
+    """Bytes each timed function must move for ``n`` keys: each input read
+    once and each output written once. ``dynamic_store`` reads only the 256
+    offsets of each tile, not the padding rows of its offset array."""
+    tiles = n // K.TILE
+    return {
+        KERNEL_ROWS[0]: 4 * n + 4 * tiles * K.DIGITS,
+        KERNEL_ROWS[1]: 8 * n,
+        KERNEL_ROWS[2]: 8 * n + 4 * tiles * K.DIGITS,
+        SORT1: 8 * n,
+        SORT3: 12 * n,
+    }
+
+
+def bound_ms(nbytes: int) -> float:
+    return nbytes / (H.PEAK_GBPS * 1e6)
+
+
+def time_rows(n: int, offs: torch.Tensor, device: torch.device,
+              runs: int = H.DEFAULT_RUNS) -> list[dict]:
+    """Time the three kernels and the two sorts, interleaved, over the timed
+    key sets; one dict per row with ``ms``, ``ms_min``, ``bytes`` and
+    ``bound_ms``."""
+    sets = [{"keys": make_keys(n, seed, device)} for seed in TIMED_SEEDS]
+    steps = {
+        KERNEL_ROWS[0]: lambda s: K.digit_histogram(s["keys"]),
+        KERNEL_ROWS[1]: lambda s: K.rank_cumsum(s["keys"]),
+        KERNEL_ROWS[2]: lambda s: K.dynamic_store(s["keys"], offs),
+        SORT1: lambda s: sort1(s["keys"]),
+        SORT3: lambda s: sort3(s["keys"]),
+    }
+    times = H.time_interleaved(steps, sets, runs)
+    nbytes = bound_bytes(n)
+    return [{"name": name, "n": n, "ms": times[name][0], "ms_min": times[name][1],
+             "bytes": nbytes[name], "bound_ms": bound_ms(nbytes[name])} for name in steps]
+
+
+def report(rows: list[dict]) -> list[str]:
+    """The timing table and the verdict line."""
+    lines = [f"{'row':<26} {'ms':>8} {'ms min':>8} {'Mkeys/s':>9} {'B/key':>6} "
+             f"{'bound ms':>9} {'bound%':>7}"]
+    for r in rows:
+        lines.append(f"{r['name']:<26} {r['ms']:>8.4f} {r['ms_min']:>8.4f} "
+                     f"{r['n'] / (r['ms'] * 1e3):>9.0f} {r['bytes'] / r['n']:>6.2f} "
+                     f"{r['bound_ms']:>9.4f} {100.0 * r['bound_ms'] / r['ms']:>7.1f}")
+    lines.append(verdict(rows))
+    return lines
+
+
+def verdict(rows: list[dict]) -> str:
+    ms = {r["name"]: r["ms"] for r in rows}
+    floor = max(ms[KERNEL_ROWS[1]], ms[KERNEL_ROWS[2]])
+    return (f"per-pass floor (max of K2/K3): {floor:.4f} ms; 4-pass radix >= {4 * floor:.4f} ms "
+            f"vs {SORT1} {ms[SORT1]:.4f} ms -> radix is {4 * floor / ms[SORT1]:.2f}x the "
+            f"baseline ({4 * floor / ms[SORT3]:.2f}x the {SORT3}, {ms[SORT3]:.4f} ms)")
+
+
+def run(device: torch.device, n: int, runs: int = H.DEFAULT_RUNS, log=print
+        ) -> tuple[list[dict], list[str]]:
+    """Check the kernels on the seed-0 keys, then on a CUDA card time them
+    beside the sorts. Returns the timed rows (none on the CPU) and the
+    kernels that failed their check."""
+    keys = make_keys(n, CHECK_SEED, device)
+    offs = torch.from_numpy(make_offsets(K._check_keys(keys))).to(device)
+    failed = check(keys, offs, log)
+    if device.type != "cuda" or failed:
+        return [], failed
+    return time_rows(n, offs, device, runs), failed
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m ibu_tpu_torch.labs.sort_lab",
+                                 description=__doc__.split("\n")[0])
+    ap.add_argument("--records", type=int, default=DEFAULT_KEYS,
+                    help=f"keys, a multiple of {K.KEYS_MULTIPLE} (default 2^24)")
+    ap.add_argument("--runs", type=int, default=H.DEFAULT_RUNS)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu: the plain versions, oracle checks, no timing")
+    args = ap.parse_args(argv)
+    device = H.select_device(args.device, ap.prog)
+    if device is None:
+        return 2
+    print(f"sort_lab: {device} n={args.records} tile={K.TILE}", flush=True)
+    try:
+        rows, failed = run(device, args.records, args.runs, log=lambda line: print(line, flush=True))
+    except ValueError as err:
+        print(f"sort_lab: {err}", flush=True)
+        return 2
+    if device.type != "cuda":
+        print("no timing: the plain versions ran on the CPU for the oracle checks", flush=True)
+    elif not failed:
+        for line in report(rows):
+            print(line, flush=True)
+    if failed:
+        print(f"sort_lab: {len(failed)} kernel(s) failed: {', '.join(failed)}", flush=True)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

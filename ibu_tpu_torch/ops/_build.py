@@ -1,4 +1,5 @@
-"""Build and load the CUDA library (``csrc/codec.cu`` and ``csrc/codec_lab.cu``).
+"""Build and load the CUDA library (``csrc/codec.cu``, ``csrc/codec_lab.cu``
+and ``csrc/sort_lab.cu``).
 
 ``nvcc`` compiles the sources of this checkout into a shared library with a
 plain C interface, which :func:`load` opens with ``ctypes``: one ``nvcc`` per
@@ -119,6 +120,13 @@ def load() -> ctypes.CDLL:
     lib.ibu_lab_encode.restype = i32
     lib.ibu_lab_decode.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr]
     lib.ibu_lab_decode.restype = i32
+    # keys [, offs], out, tiles, stream
+    lib.ibu_lab_digit_histogram.argtypes = [ptr, ptr, i64, ptr]
+    lib.ibu_lab_digit_histogram.restype = i32
+    lib.ibu_lab_rank_cumsum.argtypes = [ptr, ptr, i64, ptr]
+    lib.ibu_lab_rank_cumsum.restype = i32
+    lib.ibu_lab_dynamic_store.argtypes = [ptr, ptr, ptr, i64, ptr]
+    lib.ibu_lab_dynamic_store.restype = i32
     lib.ibu_cuda_error_string.argtypes = [i32]
     lib.ibu_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ibu_tpu.constructs.record import RECORD_DTYPE
+from ibu_tpu_torch.constructs.record import RECORD_DTYPE
 
 U64_MASK = (1 << 64) - 1
 #: int64 with only bit 63 set.

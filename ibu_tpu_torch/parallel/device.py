@@ -18,7 +18,7 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from ibu_tpu.io.mmap import STREAM_BATCH_RECORDS, MmapReader
+from ibu_tpu_torch.io.mmap import STREAM_BATCH_RECORDS, MmapReader
 from ibu_tpu_torch.ops.stats import (
     _changed,
     _group_bounds,

@@ -20,10 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ibu_tpu.constructs.header import Header
-from ibu_tpu.constructs.record import make_records
-from ibu_tpu.io.mmap import MmapReader
-from ibu_tpu.io.writer import Writer
+from ibu_tpu_torch import native
+from ibu_tpu_torch.constructs.header import Header
+from ibu_tpu_torch.constructs.record import make_records
+from ibu_tpu_torch.io.compression import sniff_compression
+from ibu_tpu_torch.io.mmap import MmapReader
+from ibu_tpu_torch.io.writer import Writer
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops.codec_cuda import decode_records, encode_records
 from ibu_tpu_torch.ops.stats import group_sum_np, sort_records
@@ -54,12 +56,11 @@ def encode_batch(
     device: str | torch.device | None = None,
 ) -> np.ndarray:
     """ASCII rows ``(N, bc_len)`` + ``(N, umi_len)`` + ``uint64`` indices →
-    structured record array. ``"host"`` runs the shared native host codec
-    (numpy where it is not built); the numerics are the same either way."""
+    structured record array. ``"host"`` runs the native host codec
+    (:mod:`ibu_tpu_torch.native`; numpy where it is not built); the
+    numerics are the same either way."""
     _check_engine(engine)
     if engine == "host":
-        from ibu_tpu import native
-
         if native.available():
             bc = native.pack_2bit(np.ascontiguousarray(bc_rows), validate=False)
             umi = native.pack_2bit(np.ascontiguousarray(umi_rows), validate=False)
@@ -87,8 +88,6 @@ def decode_batch(
     and the ``uint64`` index column."""
     _check_engine(engine)
     if engine == "host":
-        from ibu_tpu import native
-
         bc_words = np.ascontiguousarray(records["barcode"])
         umi_words = np.ascontiguousarray(records["umi"])
         if native.available():
@@ -187,8 +186,6 @@ def decode_file(
 def _require_plain(path: str, tool: str) -> None:
     """Raise a clear error when a tool that maps its input gets a gzip/zstd
     file (same text as :mod:`ibu_tpu.pipelines`)."""
-    from ibu_tpu.io.compression import sniff_compression
-
     with open(path, "rb") as f:
         kind = sniff_compression(f.read(4))
     if kind is not None:
@@ -204,14 +201,13 @@ def file_stats(
 ) -> dict:
     """Count + exact field checksums of a whole file. ``"device"`` streams
     the file to the device (:func:`ibu_tpu_torch.parallel.device.stream_file_stats`);
-    ``"native"`` runs the shared native host engine. The returned dict names
+    ``"native"`` runs the native host engine
+    (:func:`ibu_tpu_torch.native.checksum_parallel`). The returned dict names
     the engine that ran under ``"engine"``."""
     _require_plain(path, "stats")
     reader = MmapReader(path)
     n = reader.len()
     if engine == "native":
-        from ibu_tpu import native
-
         if not native.available():
             raise RuntimeError(f"native runtime unavailable: {native.load_error()}")
         bc, umi, idx = native.checksum_parallel(path, n)

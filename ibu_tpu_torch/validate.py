@@ -23,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ibu_tpu.constructs.record import make_records
+from ibu_tpu_torch.constructs.record import make_records
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops.codec_cuda import (
     decode_planes,

@@ -1,5 +1,6 @@
-"""The CUDA codec kernels and the codec labs' kernels against their plain
-torch versions, and the histogram engines and validation matrix, on the card.
+"""The CUDA codec kernels, the codec labs' and the sort lab's kernels against
+their plain torch versions, and the histogram engines and validation matrix,
+on the card.
 
 Every test here is marked ``cuda`` and skips where no CUDA card is present.
 The file imports no jax, so on a machine with a card it runs alone:
@@ -13,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from ibu_tpu import Header, MmapReader, Writer
-from ibu_tpu.constructs.record import make_records
+from ibu_tpu_torch import Header, MmapReader, Writer, make_records
 from ibu_tpu_torch import pipelines as TPL
 from ibu_tpu_torch.labs import _kernels as LK
-from ibu_tpu_torch.labs import kernel_lab, sol_lab
+from ibu_tpu_torch.labs import _sort_kernels as SK
+from ibu_tpu_torch.labs import kernel_lab, sol_lab, sort_lab
+from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as TC
 from ibu_tpu_torch.ops import codec_cuda as K
 from ibu_tpu_torch.ops import stats as TS
@@ -364,3 +366,86 @@ def test_labs_run_on_card(card, capsys):
     assert kernel_lab.main(["--records", str(N), "--runs", "2"]) == 0
     out = capsys.readouterr().out
     assert out.count("copy floor (sol_touch)") == 2 and "FAILED" not in out
+
+
+# ---------------------------------------------------------------------------
+# the sort lab's kernels (ibu_tpu_torch/labs/_sort_kernels.py, csrc/sort_lab.cu)
+# ---------------------------------------------------------------------------
+
+SORT_N = 1 << 20
+
+
+def sort_cases(card):
+    """``(label, keys)``: the lab's keys, keys that all share one low byte,
+    every digit 8 times in every tile, and the smallest legal count."""
+    keys = sort_lab.make_keys(SORT_N, 3, card)
+    every = (torch.arange(SORT_N, device=card).flip(0) % 256).to(torch.int32)
+    return [("lab keys", keys), ("one low byte", (keys & -256) | 0x5A),
+            ("every digit", every),
+            ("16384 keys", sort_lab.make_keys(SK.KEYS_MULTIPLE, 4, card))]
+
+
+def sort_offsets(card, keys, fill=None):
+    offs = sort_lab.make_offsets(keys.shape[0] // SK.TILE)
+    if fill is not None:
+        offs = np.where(np.arange(offs.size).reshape(offs.shape) % 2 == 0, 0, 8).astype(np.int32)
+    return torch.from_numpy(offs).to(card)
+
+
+@pytest.mark.parametrize("name", list(SK.KERNELS))
+def test_sort_lab_kernel_matches_plain(card, name):
+    kernel, plain, _ = SK.KERNELS[name]
+    for label, keys in sort_cases(card):
+        for offs in (sort_offsets(card, keys), sort_offsets(card, keys, "0/8")):
+            args = (keys, offs) if name == "dynamic_store" else (keys,)
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == want.dtype, label
+            assert torch.equal(got, want), label
+
+
+def test_sort_lab_kernels_match_numpy_oracles(card):
+    keys = sort_lab.make_keys(SORT_N, 0, card)
+    assert sort_lab.check(keys, sort_offsets(card, keys), log=lambda line: None) == []
+
+
+def test_sort_lab_offsets_outside_the_block_are_skipped(card):
+    keys = sort_lab.make_keys(SK.KEYS_MULTIPLE, 5, card)
+    offs = sort_offsets(card, keys)
+    offs[::5] = -1
+    offs[1::7] = 9
+    assert torch.equal(SK.dynamic_store(keys, offs), SK.plain_dynamic_store(keys, offs))
+
+
+def test_sort_lab_launch_counters_and_checks(card, monkeypatch):
+    for kernel, _, _ in SK.KERNELS.values():
+        monkeypatch.setattr(kernel, "launches", 0)
+    empty = torch.empty(0, dtype=torch.int32, device=card)
+    assert SK.digit_histogram(empty).shape == (0, 256)
+    assert SK.digit_histogram.launches == 0
+    keys = sort_lab.make_keys(SK.KEYS_MULTIPLE, 6, card)
+    SK.digit_histogram(keys)
+    SK.rank_cumsum(keys)
+    SK.dynamic_store(keys, sort_offsets(card, keys))
+    torch.cuda.synchronize()
+    assert {name: k.launches for name, (k, _, _) in SK.KERNELS.items()} == dict.fromkeys(SK.KERNELS, 1)
+    with pytest.raises(ValueError, match="multiple of 16384"):
+        SK.rank_cumsum(keys[:-128])
+    with pytest.raises(ValueError, match="offs must be"):
+        SK.dynamic_store(keys, sort_offsets(card, keys)[:-1])
+
+
+def test_sort_lab_launch_failure_raises(card, monkeypatch):
+    """A launch the card refuses raises, and counts no launch."""
+    lib = _build.load()
+    monkeypatch.setattr(SK.rank_cumsum, "launches", 0)
+    monkeypatch.setattr(lib, "ibu_lab_rank_cumsum", lambda *args: 1)  # cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match="rank_cumsum kernel launch failed: CUDA error 1"):
+        SK.rank_cumsum(sort_lab.make_keys(SK.KEYS_MULTIPLE, 7, card))
+    assert SK.rank_cumsum.launches == 0
+
+
+def test_sort_lab_runs_on_card(card, capsys):
+    assert sort_lab.main(["--records", str(1 << 18), "--runs", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "per-pass floor (max of K2/K3)" in out and "FAILED" not in out

@@ -1,11 +1,13 @@
 """Import boundary and CPU dispatch of the torch port. This file imports no
 jax, so it also runs where jax is not installed."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from ibu_tpu_torch.labs import _kernels as LK
@@ -21,6 +23,7 @@ def test_port_loads_no_jax():
         "import ibu_tpu_torch.parallel.device, ibu_tpu_torch.ops.codec_cuda\n"
         "import ibu_tpu_torch.validate, ibu_tpu_torch.ops.stats\n"
         "import ibu_tpu_torch.labs.sol_lab, ibu_tpu_torch.labs.kernel_lab\n"
+        "import ibu_tpu_torch.labs.sort_lab, ibu_tpu_torch.native\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -31,6 +34,47 @@ def test_port_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+PORT_SOURCES = sorted((REPO / "ibu_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    """Top-level package of every import statement in ``path``."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_source_imports_neither_ibu_tpu_nor_jax(path):
+    bad = [name for name in _imported_roots(path)
+           if name.split(".")[0] in ("ibu_tpu", "jax", "jaxlib")]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_every_port_module_loads_without_ibu_tpu_or_jax():
+    """Import every module of the package (and ``chip_smoke``) in a fresh
+    process; neither ``ibu_tpu`` nor ``jax`` may be loaded after."""
+    modules = ["chip_smoke"] + [
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted((REPO / "ibu_tpu_torch").rglob("*.py"))
+    ]
+    assert "ibu_tpu_torch.labs.sort_lab" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('ibu_tpu', 'jax', 'jaxlib'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
 
 
 def test_no_jax_import_in_port_sources():
