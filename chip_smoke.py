@@ -44,7 +44,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    verdict line. The three kernels' launch counters are zeroed just before the
    lab runs and must be positive after it; then each kernel is held exactly
    against its plain version on the lab's keys, on keys that all share one low
-   byte and on 16384 keys, and timed beside it, with its device time from
+   byte and on 16384 keys, the rank kernels also on
+   :data:`~ibu_tpu_torch.labs.sort_lab.RANK_CASES` and the store on
+   :data:`~ibu_tpu_torch.labs.sort_lab.STORE_CASES`, each at 2^24 keys and at 8
+   and 24 tiles, and timed beside it, with its device time from
    ``torch.profiler``.
 
 The second-to-last line is a JSON object with one entry per kernel (the four
@@ -52,7 +55,8 @@ production kernels, the six codec lab kernels with each mode's figures under
 ``modes``, then the three sort lab kernels). Each entry has its time
 (``ms``), its plain version's (``plain_ms``), its bound (``bound_ms``: the
 bytes it must move, each input read once and each output written once, over
-the H100's 3350 GB/s; the sort lab's own count for its kernels) and, where
+the H100's 3350 GB/s; the sort lab's own count for its kernels, in which
+``dynamic_store`` reads only the key rows its offsets select) and, where
 PyTorch computes the same function, that time (``library_ms``, else null:
 for ``digit_histogram`` the index pass and ``torch.bincount`` together, the
 call alone under ``bincount_ms``). The last line is
@@ -622,11 +626,20 @@ def sort_lab_phase(card, n: int) -> list[dict]:
     cases = [("lab keys", keys, offs),
              ("one low byte", (keys & -256) | 0x5A, offs),
              ("16384 keys", sort_lab.make_keys(SK.KEYS_MULTIPLE, 2, card), offsets(SK.KEYS_MULTIPLE))]
+    # the cases that break the redesigned rank and store kernels, at the lab's
+    # size and at 8 and 24 tiles (the store takes 4 tiles per block)
+    sizes = (n, 8 * SK.TILE, 24 * SK.TILE)
+    rank_cases = [(f"{case} n={m}", sort_lab.case_keys(m, case, card), None)
+                  for m in sizes for case in sort_lab.RANK_CASES]
+    store_cases = [(f"offsets {case} n={m}", sort_lab.make_keys(m, 3, card),
+                    torch.from_numpy(sort_lab.case_offsets(m // SK.TILE, case)).to(card))
+                   for m in sizes for case in sort_lab.STORE_CASES]
+    extra = {"digit_histogram": rank_cases, "rank_cumsum": rank_cases, "dynamic_store": store_cases}
     timed_sets = [sort_lab.make_keys(n, seed, card) for seed in sort_lab.TIMED_SEEDS]
     out = []
     for (name, (kernel, plain, line)), row in zip(SK.KERNELS.items(), sort_lab.KERNEL_ROWS):
         err = 0.0
-        for label, case_keys, case_offs in cases:
+        for label, case_keys, case_offs in cases + extra[name]:
             case = args(name, case_keys, case_offs)
             err = max(err, max_abs_err(as_tuple(kernel(*case)), as_tuple(plain(*case))))
             torch.cuda.synchronize()
@@ -676,7 +689,8 @@ def sort_lab_phase(card, n: int) -> list[dict]:
                         f"(torch.bincount alone {entry['bincount_ms']:.4f} ms)")
         prof_note = "not measured" if profiled is None else f"{profiled:.4f} ms"
         log(f"timing: {name} n={n}: kernel {ms:.4f} ms (profiler: {prof_note}), plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms{lib_note}, exact on {len(cases)} cases")
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms{lib_note}, exact on "
+            f"{len(cases) + len(extra[name])} cases")
         out.append(entry)
     return out
 

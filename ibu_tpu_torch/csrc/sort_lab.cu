@@ -10,46 +10,57 @@
 //   tools/pallas_sort_lab.py::dynamic_store (_store_kernel)
 //
 // Keys are u32 bit patterns held as int32, cut into tiles of 2048 keys (16
-// rows of 128, row-major); the digit of a key is its low byte. One block
-// takes one tile, so blocks share nothing and need no second pass.
+// rows of 128, row-major); the digit of a key is its low byte. Blocks share
+// nothing, so no kernel needs a second pass.
 //
 // - digit_histogram: hist[t, c] = number of keys of tile t whose digit is c.
-//   256 threads read the tile once; each warp counts into its own 256-bin
-//   copy in shared memory (shared-memory atomics, at most 32-way contention
-//   within one warp and none between warps), then thread c sums the 8 copies
-//   of bin c and writes it. The TPU's 256-way compare-accumulate and its
-//   tile-selector matmul stood in for the scatter it lacks.
+//   One block per tile: 256 threads read the tile once; each warp counts into
+//   its own 256-bin copy in shared memory (shared-memory atomics, at most
+//   32-way contention within one warp and none between warps), then thread c
+//   sums the 8 copies of bin c and writes it. The TPU's 256-way
+//   compare-accumulate and its tile-selector matmul stood in for the scatter
+//   it lacks. Bound: device-memory bytes, 4.5 per key.
 // - rank_cumsum: rank[i] = number of earlier keys of the same tile with the
-//   same digit (a stable rank). Each warp takes runs of 32 consecutive keys:
-//   __match_any_sync on the digit gives each key's peers in the run, and
-//   popc(peers & lanemask_lt) its rank among them; the lowest peer writes
-//   the run's count of that digit into a (64 runs x 256 digits) u16 table in
-//   shared memory (32 KB). Thread c then turns column c into an exclusive
-//   scan over the runs, which is each run's offset for digit c, and every key
-//   adds its run's offset to its rank in the run. This is CUB's block radix
-//   rank in its simplest form; the TPU's triangular matmuls (about 64 KFLOP
-//   per key) stood in for the cumsum it lacks.
+//   same digit (a stable rank). The TPU's triangular matmuls (about 64 KFLOP
+//   per key) stood in for the cumsum Mosaic lacks; here the function moves 8
+//   bytes per key and does a few dozen warp operations per 32 keys, so
+//   device-memory bytes bound it. A first design kept the TPU's shape (64 runs
+//   of 32 keys per tile, __match_any_sync for each key's peers in its run, a
+//   64x256 u16 table of run counts and a 64-step scan per digit): 0.155 ms at
+//   2^24 keys, 26% of its bound. Timed with parts removed
+//   (labs/sort_ablation.cu), 0.09 ms of that was __match_any_sync, 0.011 ms the
+//   scan and 0.001 ms the zeroing (NVIDIA H100 80GB HBM3, 700 W). So the design
+//   is now: one block of 4 warps per tile, each warp ranking 512 consecutive
+//   keys (4 rows) as 16 runs of 32; a key's peers in its run come from 8
+//   __ballot_sync on the digit's bits; the warp carries its running count of
+//   every digit across its runs in a private row of 256 u32 counters in shared
+//   memory (4 KB per block, counts reach 2048); a 4-step exclusive scan over
+//   the warps gives each warp's offset for each digit, and a key's rank is that
+//   offset plus its count in the warp. Each load and store is a coalesced
+//   128-byte warp access.
 // - dynamic_store: for each tile, 256 stores in the order c = 0..255 of key
 //   rows [8g, 8g + 8), g = c % 2, to rows [off_c, off_c + 8) of the tile's
-//   16 x 128 output block, a later store overwriting an earlier one; off_c is
-//   offs[8t + c / 128, c % 128]. The stores go into the block held in shared
-//   memory (8 KB), as the TPU's go into its VMEM output block, and the block
-//   is written out once. Thread j owns column j: it keeps its 16 keys in
-//   registers and alone writes column j, so its own program order makes the
-//   last store win without a barrier inside the loop. Rows that no store
-//   covers are written as 0, and a store whose offset lies outside [0, 8] is
-//   skipped (the TPU lab's offsets never are).
-//
-// What bounds them on an H100: device-memory bytes. Per key, the histogram
-// reads 4 B and writes 0.5 B, the rank reads and writes 4 B, and the store
-// reads 4 B of keys and 2 B of offset rows and writes 4 B; the arithmetic
-// per byte is small, and the store's 512 B of shared-memory writes per key
-// run at shared-memory speed. Each kernel reads its tile with coalesced
-// 4-byte loads.
+//   16x128 output block, a later store overwriting an earlier one, with off_c
+//   = offs[8t + c / 128, c % 128]; rows that no store covers are 0, and a store
+//   whose offset lies outside [0, 8] is skipped (the TPU lab's offsets never
+//   are). The TPU kernel made every store into its VMEM output block, as Mosaic
+//   offered no other way to express the moves; a first design made them into a
+//   shared-memory block, 512 bytes of shared stores per key, and ran at the
+//   shared-store rate (0.30 ms at 2^24 keys, 14% of its bound). The function
+//   needs far less: output row r copies key row 8 (c* % 2) + r - off_c*, where
+//   c* is the last in-range store that covers r, or is 0 when none does. So one
+//   warp takes one tile: lane l reads offsets 8l .. 8l + 7 (two 16-byte loads)
+//   and folds them into a per-row maximum of (c << 4 | source row); 16
+//   __reduce_max_sync give the warp every row's source; then each lane copies
+//   its 16 bytes of each of the 16 rows with 16-byte loads and stores (512
+//   contiguous bytes per warp access). Only the key rows the offsets select are
+//   read. Bound: device-memory bytes, at most 8.5 per key; 4 tiles per block.
 //
 // Each kernel launches on the caller's stream, allocates nothing and never
 // synchronises; each C entry point returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a tile count the grid cannot hold).
+// cudaErrorInvalidValue for a tile count the grid cannot hold). The store
+// kernel reads and writes 16-byte vectors, so its pointers must be 16-byte
+// aligned (the wrapper checks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,9 +71,11 @@ constexpr int kTile = 2048;
 constexpr int kRows = 16;
 constexpr int kLanes = 128;
 constexpr int kDigits = 256;
-constexpr int kWarps = 8;  // histogram and rank: 256 threads, one per digit
-constexpr int kRuns = kTile / 32;
-constexpr int kOffRows = 8;  // rows of 128 offsets reserved per tile
+constexpr int kWarps = 8;       // histogram: 256 threads, one per digit
+constexpr int kOffRows = 8;     // rows of 128 offsets reserved per tile
+constexpr int kRankWarps = 4;   // rank: warps per tile (block)
+constexpr int kRankRuns = kTile / 32 / kRankWarps;  // rank: runs of 32 keys per warp
+constexpr int kStoreTiles = 4;  // store: tiles per block, one warp each
 
 __global__ void __launch_bounds__(kDigits)
 digit_histogram_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ hist) {
@@ -84,74 +97,98 @@ digit_histogram_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ h
   hist[int64_t(blockIdx.x) * kDigits + tid] = sum;
 }
 
-__global__ void __launch_bounds__(kDigits)
+// The lanes of the warp whose digit equals d (8 ballots, one per bit):
+// each key's peers in its run of 32.
+__device__ __forceinline__ unsigned digit_peers(int d) {
+  unsigned peers = 0xFFFFFFFFu;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const bool bit = (d >> b) & 1;
+    const unsigned set = __ballot_sync(0xFFFFFFFFu, bit);
+    peers &= bit ? set : ~set;
+  }
+  return peers;
+}
+
+__global__ void __launch_bounds__(kRankWarps * 32)
 rank_cumsum_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ rank) {
-  __shared__ uint16_t counts[kRuns][kDigits];  // per run, then per-run offsets
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  uint32_t* words = reinterpret_cast<uint32_t*>(&counts[0][0]);
-  for (int i = tid; i < kRuns * kDigits / 2; i += kDigits) words[i] = 0;
-  __syncthreads();
-  const int64_t base = int64_t(blockIdx.x) * kTile;
+  __shared__ unsigned counts[kRankWarps][kDigits];  // per warp, then its offsets
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t base = int64_t(blockIdx.x) * kTile + warp * (kRankRuns * 32) + lane;
+  int digit[kRankRuns];
+#pragma unroll
+  for (int k = 0; k < kRankRuns; ++k) digit[k] = keys[base + k * 32] & 0xFF;
+#pragma unroll
+  for (int c = lane; c < kDigits; c += 32) counts[warp][c] = 0;
+  __syncwarp();
   const unsigned below = (1u << lane) - 1u;
-  int digit[kRuns / kWarps];
-  int local[kRuns / kWarps];
+  unsigned local[kRankRuns];
 #pragma unroll
-  for (int k = 0; k < kRuns / kWarps; ++k) {
-    const int run = warp + k * kWarps;
-    const int d = keys[base + run * 32 + lane] & 0xFF;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    digit[k] = d;
-    local[k] = __popc(peers & below);
-    if (local[k] == 0) counts[run][d] = uint16_t(__popc(peers));
+  for (int k = 0; k < kRankRuns; ++k) {
+    const int d = digit[k];
+    const unsigned peers = digit_peers(d);
+    const unsigned before = __popc(peers & below);
+    const unsigned prior = counts[warp][d];
+    local[k] = prior + before;
+    __syncwarp();
+    if (before == 0) counts[warp][d] = prior + __popc(peers);
+    __syncwarp();
   }
   __syncthreads();
-  unsigned sum = 0;
-  for (int run = 0; run < kRuns; ++run) {
-    const unsigned c = counts[run][tid];
-    counts[run][tid] = uint16_t(sum);
-    sum += c;
+  for (int c = threadIdx.x; c < kDigits; c += kRankWarps * 32) {
+    unsigned sum = 0;
+#pragma unroll
+    for (int w = 0; w < kRankWarps; ++w) {
+      const unsigned n = counts[w][c];
+      counts[w][c] = sum;
+      sum += n;
+    }
   }
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < kRuns / kWarps; ++k) {
-    const int run = warp + k * kWarps;
-    rank[base + run * 32 + lane] = int(counts[run][digit[k]]) + local[k];
+  for (int k = 0; k < kRankRuns; ++k) {
+    rank[base + k * 32] = int(counts[warp][digit[k]] + local[k]);
   }
 }
 
-__global__ void __launch_bounds__(kLanes)
-dynamic_store_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ offs,
-                     int32_t* __restrict__ out) {
-  __shared__ int32_t block[kRows][kLanes];
-  __shared__ int32_t off[kDigits];
-  const int j = threadIdx.x;
-  const int64_t base = int64_t(blockIdx.x) * kTile;
-  const int32_t* tile_offs = offs + int64_t(blockIdx.x) * kOffRows * kLanes;
-  off[j] = tile_offs[j];
-  off[kLanes + j] = tile_offs[kLanes + j];
-  int32_t col[kRows];
+__global__ void __launch_bounds__(kStoreTiles * 32)
+dynamic_store_kernel(const int4* __restrict__ keys, const int4* __restrict__ offs,
+                     int4* __restrict__ out, int64_t tiles) {
+  constexpr int kVecs = kLanes / 4;  // int4 per row: one per lane
+  const int lane = threadIdx.x & 31;
+  const int64_t tile = int64_t(blockIdx.x) * kStoreTiles + (threadIdx.x >> 5);
+  if (tile >= tiles) return;
+  // lane l holds stores c = 8l .. 8l + 7
+  const int4* own = offs + tile * (kOffRows * kVecs) + 2 * lane;
+  const int4 lo = own[0], hi = own[1];
+  const int start[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  // last[r]: (c << 4) | source row of the last of the lane's stores that
+  // covers output row r, or -1
+  int last[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) last[r] = -1;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int c = 8 * lane + k;
+    const int s = start[k];
+    if (unsigned(s) <= unsigned(kRows - 8)) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r >= s && r < s + 8) last[r] = (c << 4) | (8 * (k & 1) + r - s);
+      }
+    }
+  }
+  const int4* src = keys + tile * (kRows * kVecs) + lane;
+  int4* dst = out + tile * (kRows * kVecs) + lane;
+  int4 row[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    col[r] = keys[base + r * kLanes + j];
-    block[r][j] = 0;
-  }
-  __syncthreads();
-  for (int c = 0; c < kDigits; c += 2) {  // c even stores rows 0-7, c + 1 rows 8-15
-    const int lo = off[c];
-    const int hi = off[c + 1];
-    if (unsigned(lo) <= 8u) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) block[lo + k][j] = col[k];
-    }
-    if (unsigned(hi) <= 8u) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) block[hi + k][j] = col[8 + k];
-    }
+    const int winner = __reduce_max_sync(0xFFFFFFFFu, last[r]);  // the same in every lane
+    row[r] = winner < 0 ? make_int4(0, 0, 0, 0) : src[(winner & 15) * kVecs];
   }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) out[base + r * kLanes + j] = block[r][j];
+  for (int r = 0; r < kRows; ++r) dst[r * kVecs] = row[r];
 }
 
 bool grid_ok(int64_t tiles) { return tiles > 0 && tiles <= INT32_MAX; }
@@ -168,7 +205,7 @@ extern "C" int ibu_lab_digit_histogram(const void* keys, void* hist, int64_t til
 
 extern "C" int ibu_lab_rank_cumsum(const void* keys, void* rank, int64_t tiles, void* stream) {
   if (!grid_ok(tiles)) return int(cudaErrorInvalidValue);
-  rank_cumsum_kernel<<<unsigned(tiles), kDigits, 0, static_cast<cudaStream_t>(stream)>>>(
+  rank_cumsum_kernel<<<unsigned(tiles), kRankWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(keys), static_cast<int32_t*>(rank));
   return int(cudaGetLastError());
 }
@@ -176,8 +213,9 @@ extern "C" int ibu_lab_rank_cumsum(const void* keys, void* rank, int64_t tiles, 
 extern "C" int ibu_lab_dynamic_store(const void* keys, const void* offs, void* out,
                                      int64_t tiles, void* stream) {
   if (!grid_ok(tiles)) return int(cudaErrorInvalidValue);
-  dynamic_store_kernel<<<unsigned(tiles), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(offs),
-      static_cast<int32_t*>(out));
+  const int64_t blocks = (tiles + kStoreTiles - 1) / kStoreTiles;
+  dynamic_store_kernel<<<unsigned(blocks), kStoreTiles * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(keys), static_cast<const int4*>(offs), static_cast<int4*>(out),
+      tiles);
   return int(cudaGetLastError());
 }

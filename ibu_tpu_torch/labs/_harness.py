@@ -29,7 +29,6 @@ import torch
 
 from ibu_tpu_torch.labs._kernels import BC, CODEC_DEC, CODEC_ENC, COMB, UMI
 from ibu_tpu_torch.ops.codec import np_pack, np_unpack
-from ibu_tpu_torch.utils.device import resolve_device
 
 #: bytes per bc16/umi12 round trip: 36 in and 24 out to encode, the reverse
 #: to decode (``tools/kernel_lab.py::USEFUL_BYTES``)
@@ -222,18 +221,3 @@ def floor_line(floor: Row) -> str:
     return (f"copy floor (sol_touch): {floor.ms:.4f} ms per round trip of {floor.n} records "
             f"(min {floor.ms_min:.4f}), {floor.gbps():.1f} GB/s at {USEFUL_BYTES} B/record, "
             f"{100.0 * floor.gbps() / PEAK_GBPS:.1f}% of {PEAK_GBPS:.0f} GB/s")
-
-
-def select_device(arg: str | None, prog: str) -> torch.device | None:
-    """The lab's device: the CUDA card, or the CPU only when asked for by
-    ``--device cpu``. ``None`` (after a message) when there is no card and
-    the CPU was not asked for."""
-    if arg is None and not torch.cuda.is_available():
-        print(f"{prog}: no CUDA card (torch.cuda.is_available() is false); "
-              "pass --device cpu to run the oracle checks on the plain versions", flush=True)
-        return None
-    try:
-        return resolve_device(arg)
-    except RuntimeError as err:
-        print(f"{prog}: {err}", flush=True)
-        return None

@@ -20,7 +20,8 @@ step); a wrapper raises ``ValueError`` otherwise.
   store whose offset lies outside ``[0, 8]`` is skipped.
 
 As in :mod:`ibu_tpu_torch.ops.codec_cuda`, a wrapper given CUDA tensors
-launches its kernel on the current stream and raises if the launch fails;
+launches its kernel on the current stream and raises if the launch fails
+(``ValueError`` for a CUDA tensor that does not start at a 16-byte boundary);
 given CPU tensors it runs the plain version beside it, with no fallback from
 one to the other. Each wrapper counts its launches in ``launches``.
 """
@@ -67,6 +68,9 @@ def _check_offsets(offs: torch.Tensor, keys: torch.Tensor, tiles: int) -> None:
 
 def _launch(kernel, entry: str, tiles: int, *tensors: torch.Tensor) -> None:
     device = tensors[0].device
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{kernel.__name__} reads 16-byte vectors: every tensor must start "
+                         "at a 16-byte boundary")
     lib = _build.load()
     with torch.cuda.device(device):
         rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors), tiles,

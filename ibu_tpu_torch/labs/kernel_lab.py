@@ -42,6 +42,7 @@ from ibu_tpu_torch.labs import _harness as H
 from ibu_tpu_torch.labs import _kernels as K
 from ibu_tpu_torch.labs import sol_lab
 from ibu_tpu_torch.ops import codec_cuda
+from ibu_tpu_torch.utils.device import select_device
 
 #: (enc-in, record words, dec-out), named like ``sep3sep``
 COMBOS = list(itertools.product(("sep", "comb"), (3, 4), ("sep", "comb")))
@@ -163,7 +164,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu: the plain versions, oracle checks, no timing")
     args = ap.parse_args(argv)
-    device = H.select_device(args.device, ap.prog)
+    device = select_device(args.device, ap.prog)
     if device is None:
         return 2
     blocks = [int(b) for b in args.blocks.split(",")]

@@ -54,6 +54,7 @@ import torch
 from ibu_tpu_torch.labs import _harness as H
 from ibu_tpu_torch.labs import _kernels as K
 from ibu_tpu_torch.ops import codec_cuda
+from ibu_tpu_torch.utils.device import select_device
 
 #: port variant → (encode mode, decode mode, layout)
 VARIANTS = {
@@ -232,7 +233,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu: the plain versions, oracle checks, no timing")
     args = ap.parse_args(argv)
-    device = H.select_device(args.device, ap.prog)
+    device = select_device(args.device, ap.prog)
     if device is None:
         return 2
     names = list(VARIANTS) if args.variants is None else list(

@@ -6,10 +6,11 @@ with the same seeds, sizes, names and order, on whatever device it is given,
 so on a CUDA card it checks the compiled kernels and the device aggregations
 themselves. The oracles are the numpy copies in :mod:`ibu_tpu_torch.ops`.
 
-    python -m ibu_tpu_torch.validate [--device cuda] [--out PATH]
+    python -m ibu_tpu_torch.validate [--device cuda|cpu] [--out PATH]
 
 prints PASS/FAIL per check, writes the pass/fail record (default
-``build/TORCH_VALIDATE.json``) and exits non-zero on any failure.
+``build/TORCH_VALIDATE.json``) and exits 1 on any failure. It runs on the
+card; with no card it exits 2 unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from ibu_tpu_torch.ops.u64 import (
     u64_as_int64,
 )
 from ibu_tpu_torch.parallel.device import DeviceHistogram
-from ibu_tpu_torch.utils.device import resolve_device
+from ibu_tpu_torch.utils.device import resolve_device, select_device
 
 DEFAULT_ARTIFACT = Path(__file__).resolve().parents[1] / "build" / "TORCH_VALIDATE.json"
 
@@ -68,8 +69,8 @@ def _words(t: torch.Tensor) -> np.ndarray:
 
 
 def run_matrix(progress=None, device: str | torch.device | None = None) -> list[tuple[str, bool]]:
-    """Run every oracle check on ``device`` (default: the CUDA card if there
-    is one, else the CPU). Returns ``[(check_name, passed), ...]``;
+    """Run every oracle check on ``device`` (default: the current CUDA card;
+    ``"cpu"`` runs the plain torch versions). Returns ``[(check_name, passed), ...]``;
     ``progress`` is called with each ``PASS``/``FAIL`` line as it lands."""
     device = resolve_device(device)
     results: list[tuple[str, bool]] = []
@@ -233,10 +234,14 @@ def write_artifact(
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m ibu_tpu_torch.validate", description=__doc__.split("\n")[0])
-    ap.add_argument("--device", default=None, help="cpu or cuda (default: the card if there is one)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu: the plain torch versions; without a card "
+                         "and without --device cpu the command exits 2")
     ap.add_argument("--out", default=str(DEFAULT_ARTIFACT), help="pass/fail record to write")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    device = select_device(args.device, ap.prog)
+    if device is None:
+        return 2
     results = run_matrix(progress=lambda line: print(line, flush=True), device=device)
     record = write_artifact(args.out, results, device)
     print(f"{record['passed']}/{len(results)} checks passed on {device} ({', '.join(record['devices'])}); "

@@ -449,3 +449,36 @@ def test_sort_lab_runs_on_card(card, capsys):
     assert sort_lab.main(["--records", str(1 << 18), "--runs", "2"]) == 0
     out = capsys.readouterr().out
     assert "per-pass floor (max of K2/K3)" in out and "FAILED" not in out
+
+
+SORT_SIZES = [8 * SK.TILE, 24 * SK.TILE, SORT_N]  # 8 and 24 tiles: several tiles per block
+
+
+@pytest.mark.parametrize("n", SORT_SIZES)
+@pytest.mark.parametrize("case", sort_lab.RANK_CASES)
+def test_sort_lab_rank_cases_match_plain(card, case, n):
+    keys = sort_lab.case_keys(n, case, card)
+    got, want = SK.rank_cumsum(keys), SK.plain_rank_cumsum(keys)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if case == "one digit":
+        assert int(got.max()) == SK.TILE - 1
+
+
+@pytest.mark.parametrize("n", SORT_SIZES)
+@pytest.mark.parametrize("case", sort_lab.STORE_CASES)
+def test_sort_lab_store_cases_match_plain(card, case, n):
+    keys = sort_lab.make_keys(n, 8, card)
+    offs = torch.from_numpy(sort_lab.case_offsets(n // SK.TILE, case)).to(card)
+    got, want = SK.dynamic_store(keys, offs), SK.plain_dynamic_store(keys, offs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_sort_lab_wrappers_refuse_unaligned_tensors(card):
+    keys = sort_lab.make_keys(SK.KEYS_MULTIPLE + 1, 9, card)[1:]  # 4 bytes past a boundary
+    offs = sort_offsets(card, keys)
+    for call in (lambda: SK.digit_histogram(keys), lambda: SK.rank_cumsum(keys),
+                 lambda: SK.dynamic_store(keys, offs)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            call()

@@ -1,0 +1,117 @@
+"""The port needs a CUDA card unless the caller asks for the CPU by name.
+
+``torch.cuda.is_available`` is patched to ``False`` in every test, so they
+read the same on a machine with a card. ``None`` (every entry point's
+default) means the card: without one it raises, naming ``device="cpu"``,
+and never runs on the CPU in its place. The commands exit 2 without
+``--device cpu``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ibu_tpu_torch import Header, MmapReader, Writer, make_records
+from ibu_tpu_torch import pipelines as PL
+from ibu_tpu_torch import validate as V
+from ibu_tpu_torch.io.stream import DeviceStream
+from ibu_tpu_torch.parallel import device as D
+from ibu_tpu_torch.utils.device import resolve_device, select_device
+
+
+@pytest.fixture(autouse=True)
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture
+def ibu_file(tmp_path):
+    i = np.arange(64, dtype=np.uint64)
+    path = str(tmp_path / "small.ibu")
+    with Writer.from_path(path, Header.new(16, 12)) as w:
+        w.write_batch(make_records(i * np.uint64(7), i, i))
+    return path
+
+
+def test_none_raises_and_names_the_cpu():
+    with pytest.raises(RuntimeError, match='no CUDA card is available') as err:
+        resolve_device(None)
+    assert 'device="cpu"' in str(err.value)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device()
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", torch.device("cuda")])
+def test_an_explicit_card_raises(device):
+    with pytest.raises(RuntimeError, match="requested but no CUDA card is available"):
+        resolve_device(device)
+
+
+@pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])
+def test_only_the_cpu_by_name_gives_the_cpu(device):
+    assert resolve_device(device) == torch.device("cpu")
+
+
+def test_other_devices_are_refused():
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        resolve_device("meta")
+
+
+def test_select_device_for_commands(capsys):
+    assert select_device(None, "prog") is None
+    assert "prog: no CUDA card" in capsys.readouterr().out
+    assert select_device("cuda", "prog") is None
+    assert "requested but no CUDA card" in capsys.readouterr().out
+    assert select_device("cpu", "prog") == torch.device("cpu")
+
+
+def test_validate_without_a_card_exits_2(tmp_path, capsys, monkeypatch):
+    ran = []
+    monkeypatch.setattr(V, "run_matrix", lambda *a, **k: ran.append(1) or [])
+    out = tmp_path / "v.json"
+    assert V.main(["--out", str(out)]) == 2
+    printed = capsys.readouterr().out
+    assert "no CUDA card" in printed and "--device cpu" in printed
+    assert V.main(["--device", "cuda", "--out", str(out)]) == 2
+    assert not ran and not out.exists()
+
+
+def records_of(path):
+    return np.asarray(MmapReader(path).records)
+
+
+ROWS = np.full((4, 16), ord("A"), np.uint8)
+#: every entry point of the port that takes ``device``, called without it
+ENTRY_POINTS = {
+    "encode_batch": lambda p: PL.encode_batch(ROWS, ROWS[:, :12], np.arange(4, dtype=np.uint64)),
+    "decode_batch": lambda p: PL.decode_batch(records_of(p), 16, 12, engine="device"),
+    "sort_batch": lambda p: PL.sort_batch(records_of(p)),
+    "encode_sorted_file": lambda p: PL.encode_sorted_file(p + ".out", ["ACGT"], ["ACGT"]),
+    "decode_file": lambda p: PL.decode_file(p),
+    "file_stats": lambda p: PL.file_stats(p, engine="device"),
+    "barcode_counts": lambda p: PL.barcode_counts(p, engine="device"),
+    "sharded_stats": lambda p: D.sharded_stats(records_of(p)),
+    "stream_file_stats": lambda p: D.stream_file_stats(MmapReader(p)),
+    "STATS_MAP_REDUCE.run": lambda p: D.STATS_MAP_REDUCE.run(iter([records_of(p)])),
+    "DeviceHistogram": lambda p: D.DeviceHistogram(),
+    "sharded_barcode_histogram": lambda p: D.sharded_barcode_histogram(iter([records_of(p)])),
+    "stream_file_histogram": lambda p: D.stream_file_histogram(MmapReader(p)),
+    "DeviceStream": lambda p: DeviceStream(iter([records_of(p)])),
+    "run_matrix": lambda p: V.run_matrix(),
+    "write_artifact": lambda p: V.write_artifact(p + ".json", []),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_without_device_raise(ibu_file, name):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name](ibu_file)
+
+
+def test_the_same_calls_run_on_the_cpu_by_name(ibu_file):
+    records = np.asarray(MmapReader(ibu_file).records)
+    bc, umi, idx = PL.decode_batch(records, 16, 12, device="cpu")
+    assert PL.encode_batch(bc, umi, idx, device="cpu").tobytes() == records.tobytes()
+    assert PL.file_stats(ibu_file, device="cpu")["count"] == 64
+    assert D.stream_file_histogram(MmapReader(ibu_file), device="cpu") == {
+        int(b): 1 for b in records["barcode"]}

@@ -39,16 +39,6 @@ def as_port(keys_u32):
     return torch.from_numpy(np.ascontiguousarray(keys_u32).view(np.int32))
 
 
-def alternating_offsets(tiles, even, odd):
-    """Every tile's offsets ``even`` for even ``c`` and ``odd`` for odd ``c``
-    (rows 0-7 go to ``even``, rows 8-15 to ``odd``)."""
-    c = np.arange(K.DIGITS)
-    offs = np.where(c % 2 == 0, even, odd).astype(np.int32)
-    pad = np.zeros((tiles * K.OFF_ROWS, K.LANES), np.int32)
-    pad.reshape(tiles, -1)[:, :K.DIGITS] = offs
-    return pad
-
-
 @pytest.fixture(scope="module")
 def interpreted_outputs(tpu_lab):
     """The Pallas kernels in interpret mode on the seed-0 keys and the lab's
@@ -64,7 +54,7 @@ def interpreted_outputs(tpu_lab):
             "store": np.asarray(tpu_lab.dynamic_store(jnp.asarray(keys), jnp.asarray(offs),
                                                       interpret=False)),
         }
-        other = alternating_offsets(N // K.TILE, 8, 0)
+        other = L.case_offsets(N // K.TILE, "8 then 0")
         out["store_8_0"] = np.asarray(tpu_lab.dynamic_store(
             jnp.asarray(lab_keys(N, 101)), jnp.asarray(other), interpret=False))
         out["calls"] = len(shim.outputs)
@@ -118,7 +108,7 @@ def test_dynamic_store_matches_pallas(interpreted_outputs, port):
     want = interpreted_outputs["store"]
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape == (N // 128, 128)
     assert np.array_equal(got.numpy(), want)
-    other = torch.from_numpy(alternating_offsets(N // K.TILE, 8, 0))
+    other = torch.from_numpy(L.case_offsets(N // K.TILE, "8 then 0"))
     assert np.array_equal(fn(as_port(lab_keys(N, 101)), other).numpy(),
                           interpreted_outputs["store_8_0"])
 
@@ -157,26 +147,32 @@ def test_histogram_and_rank_edges(case):
         assert (hist == K.TILE // 256).all()
 
 
-@pytest.mark.parametrize("offsets", ["lab", "all 0", "all 8", "0 then 8", "8 then 0",
-                                     "halves", "outside"])
+def ordered_stores(keys, offs, tiles):
+    """The stores one at a time, in order, skipping offsets outside [0, 8]."""
+    out = np.zeros((tiles, 16, 128), keys.dtype)
+    for t in range(tiles):
+        for c in range(256):
+            start = int(offs[8 * t + c // 128, c % 128])
+            if 0 <= start <= 8:
+                g = c % 2
+                out[t, start:start + 8] = keys.reshape(tiles, 16, 128)[t, 8 * g:8 * g + 8]
+    return out.reshape(-1, 128)
+
+
+def copy_rows(keys, rows):
+    """Each tile's output block from ``L.np_last_writers``' rows: key row
+    ``rows[t, r]`` of tile ``t`` copied to output row ``r``, 0 for -1."""
+    src = keys.reshape(len(rows), 16, 128)
+    out = np.take_along_axis(src, np.maximum(rows, 0)[:, :, None], axis=1)
+    out[rows < 0] = 0
+    return out.reshape(-1, 128)
+
+
+@pytest.mark.parametrize("offsets", L.STORE_CASES)
 def test_dynamic_store_edges(offsets):
     tiles = 2 * N // K.TILE
     keys = lab_keys(2 * N, 9)
-    if offsets == "lab":
-        offs = L.make_offsets(tiles)
-    elif offsets in ("all 0", "all 8"):
-        offs = alternating_offsets(tiles, int(offsets[-1]), int(offsets[-1]))
-    elif offsets == "0 then 8":
-        offs = alternating_offsets(tiles, 0, 8)
-    elif offsets == "8 then 0":
-        offs = alternating_offsets(tiles, 8, 0)
-    elif offsets == "halves":  # c < 128 at 0, c >= 128 at 8
-        offs = np.zeros((tiles * K.OFF_ROWS, K.LANES), np.int32)
-        offs.reshape(tiles, -1)[:, 128:256] = 8
-    else:  # stores at -1 and 9 are skipped
-        offs = L.make_offsets(tiles)
-        offs.reshape(tiles, -1)[:, 0:256:3] = -1
-        offs.reshape(tiles, -1)[:, 1:256:5] = 9
+    offs = L.case_offsets(tiles, offsets)
     got = K.dynamic_store(as_port(keys), torch.from_numpy(offs)).numpy().view(np.uint32)
     want = L.np_dynamic_store(keys, offs)
     assert np.array_equal(got, want)
@@ -187,19 +183,64 @@ def test_dynamic_store_edges(offsets):
         assert np.array_equal(blocks, src)
     if offsets == "8 then 0":
         assert np.array_equal(blocks[:, :8], src[:, 8:]) and np.array_equal(blocks[:, 8:], src[:, :8])
+    if offsets == "all outside":
+        assert not blocks.any()
+    if offsets == "only store 0":  # rows 0-7 of the keys at store 0's offset, the rest empty
+        start = offs.reshape(tiles, -1)[:, 0]
+        for t in range(tiles):
+            assert np.array_equal(blocks[t, start[t]:start[t] + 8], src[t, :8])
+            assert not np.delete(blocks[t], np.arange(start[t], start[t] + 8), axis=0).any()
+
+
+@pytest.mark.parametrize("offsets", L.STORE_CASES)
+def test_last_writer_resolution_is_the_ordered_loop(offsets):
+    """The card's K3 algorithm, stated in numpy (each output row's last
+    covering store once per tile, then a copy of whole rows), against the
+    stores made in order."""
+    tiles = 8
+    keys, offs = lab_keys(tiles * K.TILE, 11), L.case_offsets(tiles, offsets)
+    rows = L.np_last_writers(offs)
+    assert rows.shape == (tiles, 16) and rows.min() >= -1 and rows.max() <= 15
+    got = copy_rows(keys, rows)
+    assert np.array_equal(got, L.np_dynamic_store(keys, offs))
+    assert np.array_equal(got, ordered_stores(keys, offs, tiles))
+
+
+@pytest.mark.parametrize("offsets,rows_per_tile", [("all 0", 8), ("0 then 8", 16), ("halves", 8),
+                                                   ("all outside", 0), ("only store 0", 8)])
+def test_k3_bound_counts_the_rows_the_offsets_select(offsets, rows_per_tile):
+    tiles = 8
+    offs = L.case_offsets(tiles, offsets)
+    assert L.selected_rows(offs) == rows_per_tile * tiles
+    n = tiles * K.TILE
+    moved = L.bound_bytes(n, offs)[L.KERNEL_ROWS[2]]
+    assert moved == 512 * rows_per_tile * tiles + 4 * n + 4 * 256 * tiles
+    assert moved <= L.bound_bytes(n)[L.KERNEL_ROWS[2]]
+
+
+@pytest.mark.parametrize("case", L.RANK_CASES)
+@pytest.mark.parametrize("port", ["plain", "wrapper"])
+def test_rank_cases_match_numpy(case, port):
+    keys = L.case_keys(3 * N, case, CPU)
+    host = keys.numpy().view(np.uint32)
+    rank = (K.plain_rank_cumsum if port == "plain" else K.rank_cumsum)(keys).numpy().reshape(-1)
+    assert np.array_equal(rank, L.np_rank(host))
+    assert np.array_equal(rank[-K.TILE:], L.np_rank_sequential(host[-K.TILE:]))
+    digits = (host & 0xFF).reshape(-1, K.TILE)
+    if case == "one digit":
+        assert rank.max() == K.TILE - 1
+    if case == "every digit 8 times":
+        assert (np.apply_along_axis(np.bincount, 1, digits, minlength=256) == 8).all()
+    if case == "digit only in the last warp":
+        assert not (digits[:, :K.TILE * 3 // 4] == 255).any()
+        assert ((digits[:, K.TILE * 3 // 4:] == 255).sum(axis=1) > 100).all()
 
 
 def test_dynamic_store_oracle_is_the_ordered_loop():
     """The vectorized numpy oracle against stores written one at a time."""
     tiles = 8
     keys, offs = lab_keys(tiles * K.TILE, 3), L.make_offsets(tiles)
-    want = np.zeros((tiles, 16, 128), np.uint32)
-    for t in range(tiles):
-        for c in range(256):
-            start = offs[8 * t + c // 128, c % 128]
-            g = c % 2
-            want[t, start:start + 8] = keys.reshape(tiles, 16, 128)[t, 8 * g:8 * g + 8]
-    assert np.array_equal(L.np_dynamic_store(keys, offs), want.reshape(-1, 128))
+    assert np.array_equal(L.np_dynamic_store(keys, offs), ordered_stores(keys, offs, tiles))
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +319,7 @@ def test_bounds_and_verdict():
     assert len(lines) == 7 and lines[0].split()[0] == "row"
     assert lines[-1].startswith("per-pass floor (max of K2/K3): 0.3000 ms; 4-pass radix >= 1.2000 ms")
     assert "radix is 1.20x the baseline" in lines[-1] and "0.20x the 3-key sort" in lines[-1]
+    assert "a lower bound" in lines[-1] and "scatters every key" in lines[-1]
 
 
 def test_lab_entry_point_on_cpu(capsys):
