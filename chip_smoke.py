@@ -48,7 +48,21 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    :data:`~ibu_tpu_torch.labs.sort_lab.RANK_CASES` and the store on
    :data:`~ibu_tpu_torch.labs.sort_lab.STORE_CASES`, each at 2^24 keys and at 8
    and 24 tiles, and timed beside it, with its device time from
-   ``torch.profiler``.
+   ``torch.profiler``;
+10. run the single-cell workflow after ingest at 10M reads (bc16/umi12, 3,000
+    cells, 20,000 genes as the index, error rate 0.2, made by
+    :func:`ibu_tpu_torch.examples.workflow.make_ground_truth`): ingest with
+    ``encode_sorted_file``, ``call_cells(engine="device")`` (the called
+    allowlist must equal the planted one), ``correct_file`` on the card (file
+    and statistics equal to ``device="cpu"``), ``dedup_file`` with the sort on
+    the card (byte-identical to a numpy statement of the rewrite) and
+    ``count_matrix(engine="device")`` (byte-identical to ``engine="host"``),
+    every matrix entry in the planted truth. The codec kernels' launch
+    counters are zeroed just before the phase; ``encode_records``' must be
+    positive after it. Each stage's wall time is printed, the
+    ``torch.profiler`` device time of one more run of ``count_matrix(engine=
+    "device")`` and of ``correct_file``, and ``cProfile``'s heaviest host
+    functions of one more run of those two and of ``dedup_file``.
 
 The second-to-last line is a JSON object with one entry per kernel (the four
 production kernels, the six codec lab kernels with each mode's figures under
@@ -78,6 +92,7 @@ import torch
 
 from ibu_tpu_torch import Header, MmapReader, Reader, Writer, make_records, native
 from ibu_tpu_torch import pipelines as PL
+from ibu_tpu_torch.examples import workflow as WF
 from ibu_tpu_torch.labs import _harness as LH
 from ibu_tpu_torch.labs import _kernels as LK
 from ibu_tpu_torch.labs import _sort_kernels as SK
@@ -86,6 +101,7 @@ from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops import codec_cuda as K
 from ibu_tpu_torch.ops import stats as S
+from ibu_tpu_torch.ops.correct import variant_deltas
 from ibu_tpu_torch.ops.u64 import records_to_tensor
 from ibu_tpu_torch.parallel import device as D
 from ibu_tpu_torch.validate import run_matrix
@@ -97,9 +113,20 @@ N_GZIP = 2_000_000
 N_MOLECULES = 1_000_000
 N_LIE = 1_000_000
 N_SORT_LAB = 1 << 24  # the sort lab's default
+N_READS = 10_000_000  # reads of the workflow phase
+CELLS = 3_000  # planted cell barcodes of the workflow phase
+GENE_INDEX = 20_000  # the index pool: the size of a human gene annotation
+ERROR_RATE = 0.2  # reads whose barcode carries one substituted base
+#: the workflow's batches: about 15k distinct barcodes per histogram batch of
+#: the sorted raw file (the default 4M would come close to the 65,536 per
+#: shard), and about 0.9M distinct (barcode, gene) pairs per count batch
+WF_BATCH = 1 << 20
+WF_MAX_PAIRS = 1 << 22
 BARCODE_POOL = 50_000  # a single-cell run's cells plus background
 GENES = 2_000  # index pool of the molecule phase (the count matrix's columns)
 BC_LEN, UMI_LEN = 16, 12
+#: the XOR deltas of every single-base substitution of a workflow barcode
+C_DELTAS = variant_deltas(BC_LEN)
 #: device bytes per bc16/umi12 record, each way: 16 + 12 + 8 in, 24 out
 BYTES_PER_RECORD = 60
 #: device bytes per 16-base field record: 16 B of ASCII and one 8 B word
@@ -424,15 +451,16 @@ def time_pair(kernel, plain, sets, iters: int, plain_iters: int):
     return run(kernel, iters), run(plain, plain_iters)
 
 
-def device_ms(fn, sets, iters: int = 20) -> float | None:
-    """Mean device time per call of the kernels ``fn`` launches, summed over
-    ``torch.profiler``'s record of each kernel in ``iters`` back-to-back
+def device_ms(fn, sets, iters: int = 20, warm: bool = True) -> float | None:
+    """Mean device time per call of the kernels (and copies) ``fn`` launches,
+    summed over ``torch.profiler``'s record of each in ``iters`` back-to-back
     calls: their own time, with no host time or idle gaps in it. ``None``
-    when the profiler recorded no kernel."""
+    when the profiler recorded none. ``warm`` runs one call first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn(*sets[0])
+    if warm:
+        fn(*sets[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(iters):
@@ -695,6 +723,139 @@ def sort_lab_phase(card, n: int) -> list[dict]:
     return out
 
 
+def dedup_oracle(in_path: str, out_path: str) -> None:
+    """A numpy statement of ``dedup_file``'s rewrite: the records in (barcode,
+    umi, index) order, the first of each (barcode, umi) pair kept, under the
+    input's header with the sorted flag set."""
+    reader = MmapReader(in_path)
+    recs = np.asarray(reader.records)
+    recs = recs[np.lexsort((recs["index"], recs["umi"], recs["barcode"]))]
+    keep = np.ones(len(recs), dtype=bool)
+    keep[1:] = (recs["barcode"][1:] != recs["barcode"][:-1]) | (recs["umi"][1:] != recs["umi"][:-1])
+    header = reader.header()
+    header.set_sorted()
+    with Writer.from_path(out_path, header) as w:
+        w.write_batch(recs[keep])
+
+
+def neighbour_in_truth(pair: tuple[int, int], planted: set, truth: dict) -> bool:
+    """Whether ``(barcode, gene)`` is explained by a barcode collision: the
+    barcode is a planted cell one substitution away from another planted
+    cell that holds the gene. A read of that other cell whose error is that
+    substitution carries this cell's barcode exactly, so no corrector can
+    tell them apart."""
+    barcode, gene = pair
+    return barcode in planted and any(
+        (barcode ^ d, gene) in truth and barcode ^ d in planted
+        for d in C_DELTAS.tolist())
+
+
+def host_profile(fn, top: int = 8) -> list[str]:
+    """The functions with the most own host time in one call of ``fn``
+    (``cProfile``; a wait on the card shows in the call that waits)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    return [f"wall {wall:.3f} s under cProfile"] + [
+        f"{own:.3f} s own, {calls} calls: {name} ({Path(path).name}:{line})"
+        for (path, line, name), (_, calls, own, _, _) in rows[:top]]
+
+
+def count_trio(prefix: str) -> tuple[bytes, ...]:
+    return tuple(Path(f"{prefix}{ext}").read_bytes()
+                 for ext in (".mtx", ".barcodes.txt", ".indices.txt"))
+
+
+def workflow_phase(card, reads: int, workdir: Path) -> None:
+    """Phase 10: the single-cell workflow after ingest, through the entry
+    points a user calls, on the card."""
+    rng = np.random.default_rng(SEED)
+    allow, bc_rows, umi_rows, gene, truth = timed(
+        f"workflow generate {reads} reads",
+        lambda: WF.make_ground_truth(rng, CELLS, GENE_INDEX, reads, ERROR_RATE))
+    log(f"workflow: {reads} reads, {CELLS} cells, {GENE_INDEX} genes, {len(truth)} true "
+        "matrix entries")
+    raw, allowfile = str(workdir / "wf_raw.ibu"), str(workdir / "wf_cells.txt")
+    fixed, fixed_cpu = str(workdir / "wf_corrected.ibu"), str(workdir / "wf_corrected_cpu.ibu")
+    mol, mol_oracle = str(workdir / "wf_molecules.ibu"), str(workdir / "wf_molecules_np.ibu")
+
+    reset_launches()
+    timed(f"workflow ingest encode_sorted_file {reads}", lambda: PL.encode_sorted_file(
+        raw, bc_rows, umi_rows, index=gene, device=card))
+    kstats = timed(f"workflow cells call_cells device {reads}", lambda: PL.call_cells(
+        raw, allowfile, method="ordmag", expect=CELLS, engine="device",
+        batch_records=WF_BATCH, device=card))
+    with open(allowfile) as f:
+        called = np.sort(C.encode_seqs([line.strip() for line in f if line.strip()]))
+    log(f"workflow: cells {kstats}")
+    require(np.array_equal(called, allow), "the called allowlist equals the planted one")
+
+    cstats = timed(f"workflow correct_file card {reads}",
+                   lambda: PL.correct_file(raw, fixed, called, device=card))
+    cpu_stats = timed(f"workflow correct_file cpu {reads}",
+                      lambda: PL.correct_file(raw, fixed_cpu, called, device="cpu"))
+    log(f"workflow: correct {cstats}")
+    require(cstats == cpu_stats and Path(fixed).read_bytes() == Path(fixed_cpu).read_bytes(),
+            "correct_file on the card equals the CPU run (file and statistics)")
+
+    dstats = timed(f"workflow dedup_file sort on the card {reads}",
+                   lambda: PL.dedup_file(fixed, mol, assume_sorted=False, device=card))
+    timed("workflow dedup numpy statement", lambda: dedup_oracle(fixed, mol_oracle))
+    log(f"workflow: dedup {dstats}")
+    require(Path(mol).read_bytes() == Path(mol_oracle).read_bytes(),
+            "dedup_file is byte-identical to the numpy statement")
+
+    molecules = dstats["molecules"]
+    dev = timed(f"workflow count_matrix device {molecules}", lambda: PL.count_matrix(
+        mol, str(workdir / "wf_dev"), batch_records=WF_BATCH, engine="device",
+        max_pairs=WF_MAX_PAIRS, device=card))
+    host = timed(f"workflow count_matrix host {molecules}", lambda: PL.count_matrix(
+        mol, str(workdir / "wf_host"), batch_records=WF_BATCH))
+    log(f"workflow: count {dev}")
+    require(dev == host and count_trio(str(workdir / "wf_dev")) == count_trio(
+        str(workdir / "wf_host")), "count_matrix device is byte-identical to host")
+    entries, missing = timed("workflow truth check", lambda: WF.entries_outside_truth(mol, truth))
+    planted = set(allow.tolist())
+    unexplained = [p for p in missing if not neighbour_in_truth(p, planted, truth)]
+    log(f"workflow: {len(missing)} of {entries} entries lie outside the planted truth, "
+        f"{len(missing) - len(unexplained)} of them explained by a barcode collision (a planted "
+        "cell one substitution from another planted cell that holds the gene)")
+    require(entries == dev["entries"] and not unexplained,
+            f"every matrix entry lies in the planted truth or is a barcode collision "
+            f"({unexplained[:5]} are neither)")
+    launches = read_launches()
+    log(f"launches on the workflow path: {launches}")
+    require(launches["encode_records"] > 0, "encode_records ran on the workflow path")
+
+    again = {
+        "count_matrix device": lambda: PL.count_matrix(
+            mol, str(workdir / "wf_again"), batch_records=WF_BATCH, engine="device",
+            max_pairs=WF_MAX_PAIRS, device=card),
+        "correct_file": lambda: PL.correct_file(raw, str(workdir / "wf_again.ibu"), called,
+                                                device=card),
+        "dedup_file": lambda: PL.dedup_file(fixed, str(workdir / "wf_again.ibu"),
+                                            assume_sorted=False, device=card),
+    }
+    for name in ("count_matrix device", "correct_file"):
+        t0 = time.perf_counter()
+        ms = device_ms(again[name], [()], iters=1, warm=False)
+        wall = time.perf_counter() - t0
+        note = "not measured" if ms is None else f"{ms:.3f} ms ({ms / (wall * 1e3):.1%} of the wall)"
+        log(f"workflow profile: {name}: device {note}; wall under the profiler {wall:.3f} s")
+    for name, fn in again.items():
+        for line in host_profile(fn):
+            log(f"workflow host profile: {name}: {line}")
+    log(f"workflow: {entries - len(missing)} of {entries} entries in the planted truth "
+        f"({(entries - len(missing)) / len(truth):.1%} coverage)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -740,6 +901,11 @@ def main() -> int:
     kernels = time_kernels(card, N_MAIN, launches)
     kernels += labs_phase(card, N_MAIN)
     kernels += sort_lab_phase(card, N_SORT_LAB)
+    workdir.mkdir(parents=True, exist_ok=True)
+    try:
+        workflow_phase(card, N_READS, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

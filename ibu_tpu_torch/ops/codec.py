@@ -5,7 +5,8 @@ T=11, base *i* at bits ``2i`` of the packed word, at most 32 bases per u64.
 Encoding is ``t = (c >> 1) & 3; code = t ^ (t >> 1)``, case-insensitive and
 total; decoding gives uppercase ASCII.
 
-The numpy functions are copies of the host-only part of
+The numpy functions (with the host API :func:`encode_seqs` /
+:func:`decode_seqs`) are copies of the host-only part of
 :mod:`ibu_tpu.ops.codec`, which cannot be imported here because it loads jax;
 their error texts are kept byte for byte. The torch functions work on
 row-major ``(N, L)`` uint8 rows and ``(N,)`` int64 words (the u64 bits) on any
@@ -87,6 +88,32 @@ def seqs_to_rows(seqs: list[str]) -> np.ndarray:
 def rows_to_seqs(rows: np.ndarray) -> list[str]:
     """``(N, L)`` ASCII uint8 → list of strings."""
     return [bytes(r).decode("ascii") for r in rows]
+
+
+def encode_seqs(seqs: list[str], validate: bool = True) -> np.ndarray:
+    """Sequences → packed uint64 words (host API, ≤32 bases each).
+
+    >>> encode_seqs(["A", "C", "G", "T"]).tolist()
+    [0, 1, 2, 3]
+    >>> encode_seqs(["ACGT"]).tolist()  # base i at bits 2i: 0+4+32+192
+    [228]
+    >>> encode_seqs(["acgt"]).tolist() == encode_seqs(["ACGT"]).tolist()
+    True
+    """
+    rows = seqs_to_rows(seqs)
+    if rows.shape[1] > 32:
+        raise ValueError(f"sequence length {rows.shape[1]} exceeds 32 bases")
+    return np_pack(rows, validate=validate)
+
+
+def decode_seqs(words: np.ndarray, length: int) -> list[str]:
+    """Packed uint64 words → uppercase sequences of ``length`` bases.
+
+    >>> import numpy as np
+    >>> decode_seqs(np.array([228], dtype=np.uint64), 4)
+    ['ACGT']
+    """
+    return rows_to_seqs(np_unpack(np.asarray(words, dtype=np.uint64), length))
 
 
 # ---------------------------------------------------------------------------

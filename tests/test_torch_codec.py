@@ -208,6 +208,42 @@ def test_seq_helpers_match():
     assert str(torch_err.value) == str(jax_err.value)
 
 
+def test_seqs_api_doctests():
+    import doctest
+
+    results = doctest.testmod(TC, verbose=False)
+    assert results.failed == 0 and results.attempted >= 4
+
+
+@pytest.mark.parametrize("length", [1, 12, 16, 17, 32])
+def test_encode_decode_seqs_match(length):
+    rows = random_rows(300, length, seed=length, lowercase=length % 2 == 1)
+    seqs = [bytes(r).decode() for r in rows]
+    words = TC.encode_seqs(seqs)
+    assert words.dtype == np.uint64 and np.array_equal(words, JC.encode_seqs(seqs))
+    back = TC.decode_seqs(words, length)
+    assert back == JC.decode_seqs(words, length) == [s.upper() for s in seqs]
+    # plain lists and other integer dtypes are taken as words
+    assert TC.decode_seqs(words.tolist(), length) == back
+
+
+@pytest.mark.parametrize("seqs,validate", [
+    (["A" * 33], True), (["ACGN"], True), (["AC", "ACG"], True)])
+def test_encode_seqs_errors_match(seqs, validate):
+    with pytest.raises(ValueError) as jax_err:
+        JC.encode_seqs(seqs, validate=validate)
+    with pytest.raises(ValueError) as torch_err:
+        TC.encode_seqs(seqs, validate=validate)
+    assert str(torch_err.value) == str(jax_err.value)
+    if len(seqs[0]) == 33:
+        assert str(torch_err.value) == "sequence length 33 exceeds 32 bases"
+
+
+def test_encode_seqs_validates_by_default():
+    assert np.array_equal(TC.encode_seqs(["ACGN"], validate=False),
+                          JC.encode_seqs(["ACGN"], validate=False))
+
+
 # ---------------------------------------------------------------------------
 # single-field codec (encode_planes / decode_planes) and the salt
 # ---------------------------------------------------------------------------

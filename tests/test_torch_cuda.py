@@ -258,6 +258,76 @@ def test_pipelines_on_card(card, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the single-cell workflow after ingest (torch ops on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("length", [1, 12, 16, 17, 32])
+def test_torch_correct_unique_on_card(card, length):
+    from ibu_tpu_torch.ops import correct as TCorr
+
+    rng = np.random.default_rng(length)
+    hi = 1 << 64 if length == 32 else 1 << (2 * length)
+    allow = np.unique(rng.integers(0, hi, 1 if length == 1 else 3000, dtype=np.uint64))
+    deltas = TCorr.variant_deltas(length)
+    near = allow[rng.integers(0, len(allow), 5000)] ^ deltas[rng.integers(0, len(deltas), 5000)]
+    uniq = np.unique(np.concatenate([allow[:100], near, rng.integers(0, hi, 5000, dtype=np.uint64)]))
+    want = TCorr.np_correct_unique(uniq, allow, length)
+    fixed, status = TCorr.torch_correct_unique(*on(card, uniq.view(np.int64), allow.view(np.int64)),
+                                               length)
+    assert np.array_equal(fixed.cpu().numpy().view(np.uint64), want[0])
+    assert np.array_equal(status.cpu().numpy(), want[1])
+    barcodes = uniq[rng.integers(0, len(uniq), 20_000)]
+    got = TCorr.correct_batch(barcodes, allow, length, device=card)
+    want = TCorr.correct_batch(barcodes, allow, length, device="cpu")
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    if length == 32:
+        assert (uniq >> np.uint64(63)).any()
+
+
+def write_records(path, recs, bc_len=16, umi_len=12, sorted_flag=False):
+    header = Header.new(bc_len, umi_len)
+    if sorted_flag:
+        header.set_sorted()
+    with Writer.from_path(str(path), header) as w:
+        w.write_batch(recs)
+    return str(path)
+
+
+@pytest.mark.parametrize("bc_len,bits", [(16, 32), (32, 64)])
+def test_sort_file_device_on_card(card, tmp_path, bc_len, bits):
+    rng = np.random.default_rng(bits)
+    n = 200_003
+    recs = make_records(rng.integers(0, 1 << bits, n, dtype=np.uint64) % np.uint64(5000),
+                        rng.integers(0, 1 << bits, n, dtype=np.uint64),
+                        rng.integers(0, 1 << 64, n, dtype=np.uint64))
+    if bits == 64:
+        recs["barcode"] |= np.uint64(1 << 63)
+    src = write_records(tmp_path / "u.ibu", recs, bc_len, bc_len)
+    TPL.sort_file_device(src, str(tmp_path / "s.ibu"), device=card)
+    want = recs[np.lexsort((recs["index"], recs["umi"], recs["barcode"]))]
+    got = MmapReader(str(tmp_path / "s.ibu"))
+    assert got.header().sorted() and np.asarray(got.records).tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("batch", [1 << 14, 1 << 20])
+def test_count_matrix_device_on_card(card, tmp_path, batch):
+    rng = np.random.default_rng(batch)
+    n = 300_000
+    recs = make_records(rng.integers(0, 300, n, dtype=np.uint64),
+                        rng.integers(0, 64, n, dtype=np.uint64),
+                        rng.integers(0, 2000, n, dtype=np.uint64))
+    recs = recs[np.lexsort((recs["index"], recs["umi"], recs["barcode"]))]
+    src = write_records(tmp_path / "m.ibu", recs, sorted_flag=True)
+    dev = TPL.count_matrix(src, str(tmp_path / "d"), batch_records=batch, engine="device",
+                           max_pairs=1 << 22, device=card)
+    host = TPL.count_matrix(src, str(tmp_path / "h"), batch_records=batch)
+    assert dev == host and dev["entries"] > 1 << 14
+    for ext in (".mtx", ".barcodes.txt", ".indices.txt"):
+        assert (tmp_path / f"d{ext}").read_bytes() == (tmp_path / f"h{ext}").read_bytes()
+
+
+# ---------------------------------------------------------------------------
 # the codec labs' kernels (ibu_tpu_torch/labs, csrc/codec_lab.cu)
 # ---------------------------------------------------------------------------
 

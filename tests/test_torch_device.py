@@ -14,7 +14,10 @@ import torch
 from ibu_tpu_torch import Header, MmapReader, Writer, make_records
 from ibu_tpu_torch import pipelines as PL
 from ibu_tpu_torch import validate as V
+from ibu_tpu_torch.examples import workflow as W
 from ibu_tpu_torch.io.stream import DeviceStream
+from ibu_tpu_torch.ops import correct as TC
+from ibu_tpu_torch.ops import knee as TK
 from ibu_tpu_torch.parallel import device as D
 from ibu_tpu_torch.utils.device import resolve_device, select_device
 
@@ -99,6 +102,13 @@ ENTRY_POINTS = {
     "DeviceStream": lambda p: DeviceStream(iter([records_of(p)])),
     "run_matrix": lambda p: V.run_matrix(),
     "write_artifact": lambda p: V.write_artifact(p + ".json", []),
+    "sort_file_device": lambda p: PL.sort_file_device(p, p + ".sorted"),
+    "dedup_file unsorted": lambda p: PL.dedup_file(p, p + ".dedup"),
+    "count_matrix device": lambda p: PL.count_matrix(p, p + ".m", engine="device"),
+    "call_cells device": lambda p: PL.call_cells(p, p + ".txt", engine="device"),
+    "correct_file": lambda p: PL.correct_file(p, p + ".fixed", [7, 14]),
+    "correct_batch": lambda p: TC.correct_batch(records_of(p)["barcode"], np.array([7], np.uint64), 16),
+    "torch_knee_index": lambda p: TK.torch_knee_index(np.array([9, 5, 1])),
 }
 
 
@@ -115,3 +125,29 @@ def test_the_same_calls_run_on_the_cpu_by_name(ibu_file):
     assert PL.file_stats(ibu_file, device="cpu")["count"] == 64
     assert D.stream_file_histogram(MmapReader(ibu_file), device="cpu") == {
         int(b): 1 for b in records["barcode"]}
+
+
+def test_the_workflow_calls_run_on_the_cpu_by_name(ibu_file):
+    p = ibu_file
+    PL.sort_file_device(p, p + ".sorted", device="cpu")
+    assert MmapReader(p + ".sorted").header().sorted()
+    assert PL.dedup_file(p, p + ".dedup", device="cpu")["molecules"] == 64
+    assert PL.count_matrix(p + ".sorted", p + ".m", engine="device", device="cpu")["entries"] == 64
+    assert PL.call_cells(p, p + ".txt", engine="device", device="cpu")["barcodes"] == 64
+    assert PL.correct_file(p, p + ".fixed", [7, 14], device="cpu")["exact"] == 2
+    fixed, status = TC.correct_batch(records_of(p)["barcode"], np.array([7], np.uint64), 16,
+                                     device="cpu")
+    assert status.tolist().count(TC.EXACT) == 1
+    assert int(TK.torch_knee_index(np.array([9, 5, 1]), device="cpu")) == 3
+    # the host engines need no device
+    assert PL.count_matrix(p, p + ".h")["entries"] == 64
+    assert PL.call_cells(p, p + ".h.txt")["barcodes"] == 64
+    assert PL.dedup_file(p + ".sorted", p + ".dd")["molecules"] == 64
+
+
+def test_workflow_without_a_card_exits_2(tmp_path, capsys):
+    assert W.main(["--reads", "100", "--workdir", str(tmp_path)]) == 2
+    printed = capsys.readouterr().out
+    assert "workflow: no CUDA card" in printed and "--device cpu" in printed
+    assert W.main(["--reads", "100", "--device", "cuda", "--workdir", str(tmp_path)]) == 2
+    assert not list(tmp_path.iterdir())

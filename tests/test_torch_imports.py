@@ -24,6 +24,8 @@ def test_port_loads_no_jax():
         "import ibu_tpu_torch.validate, ibu_tpu_torch.ops.stats\n"
         "import ibu_tpu_torch.labs.sol_lab, ibu_tpu_torch.labs.kernel_lab\n"
         "import ibu_tpu_torch.labs.sort_lab, ibu_tpu_torch.native\n"
+        "import ibu_tpu_torch.ops.knee, ibu_tpu_torch.ops.correct\n"
+        "import ibu_tpu_torch.examples.workflow\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -63,6 +65,9 @@ def test_every_port_module_loads_without_ibu_tpu_or_jax():
         for p in sorted((REPO / "ibu_tpu_torch").rglob("*.py"))
     ]
     assert "ibu_tpu_torch.labs.sort_lab" in modules
+    for name in ("ibu_tpu_torch.ops.knee", "ibu_tpu_torch.ops.correct",
+                 "ibu_tpu_torch.examples", "ibu_tpu_torch.examples.workflow"):
+        assert name in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

@@ -111,6 +111,24 @@ def test_file_stats_matches_jax(tmp_path, n):
     want = JPL.file_stats(path, engine="device")
     assert got == want
     assert TPL.file_stats(path, engine="native") == JPL.file_stats(path, engine="native")
+    host = TPL.file_stats(path, engine="host")
+    assert host == JPL.file_stats(path, engine="host")
+    assert host == {**want, "engine": "host"}
+
+
+@pytest.mark.parametrize("batch", [1, 7, 4 * 1024 * 1024])
+def test_host_stats_match_jax(tmp_path, batch):
+    rng = np.random.default_rng(batch)
+    cols = [rng.integers(0, 1 << 64, size=50, dtype=np.uint64) for _ in range(3)]
+    path = str(tmp_path / "h.ibu")
+    with Writer.from_path(path, Header.new(16, 12)) as w:
+        w.write_batch(make_records(*cols))
+    from ibu_tpu_torch import MmapReader as TMmapReader
+
+    got = TPL.host_file_stats(TMmapReader(path), batch_records=batch)
+    assert got == JPL.host_file_stats(MmapReader(path), batch_records=batch)
+    records = np.asarray(MmapReader(path).records)
+    assert TPL.host_stream_stats([records[:20], records[20:]]) == JPL.host_stream_stats([records])
 
 
 def test_file_stats_rejects_compressed_and_bad_engine(tmp_path):
@@ -122,8 +140,8 @@ def test_file_stats_rejects_compressed_and_bad_engine(tmp_path):
     with pytest.raises(ValueError) as torch_err:
         TPL.file_stats(gz, engine="device", device=CPU)
     assert str(torch_err.value) == str(jax_err.value)
-    with pytest.raises(ValueError, match="engine must be"):
-        TPL.file_stats(str(FIXTURES / "one_record.ibu"), engine="host")
+    with pytest.raises(ValueError, match="engine must be device/native/host, got 'auto'"):
+        TPL.file_stats(str(FIXTURES / "one_record.ibu"), engine="auto")
 
 
 def test_slice_as_a_whole(tmp_path):
