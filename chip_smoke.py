@@ -62,7 +62,34 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     positive after it. Each stage's wall time is printed, the
     ``torch.profiler`` device time of one more run of ``count_matrix(engine=
     "device")`` and of ``correct_file``, and ``cProfile``'s heaviest host
-    functions of one more run of those two and of ``dedup_file``.
+    functions of one more run of those two and of ``dedup_file``;
+11. drive FASTQ → IBU → FASTQ at 10M reads (bc16/umi12): a sorted 10M-record
+    file; both record kernels held exactly against their plain versions on
+    that file's records at every batch shape this path gives them (a 2^20-row
+    export batch, the export's tail batch, a 200,000-row ingest batch);
+    ``export_fastq`` to a FASTQ (held against a numpy statement on its first
+    and its last 1M reads, the last spanning a batch boundary and the tail
+    batch, and against 83 bytes per read) and ``ingest_fastq`` back, under
+    ``IBU_AUTO_ENGINE=device`` with the codec kernels' launch counters zeroed
+    just before each call: ``decode_records`` must launch once per 2^20-record
+    batch and ``encode_records`` once per 200,000-read batch, and the ingested
+    file must equal the source byte for byte with ``arange`` as its index
+    column. The same two calls under ``IBU_AUTO_ENGINE=host`` must write the
+    same bytes. Then, with the variable unset, what ``auto_codec_engine``,
+    ``auto_stats_engine`` and ``auto_device_or_host`` decide on this card and
+    the rates they probed; a gzip → gzip leg at 1M reads, and a gzip → zstd
+    leg where the ``zstandard`` module is installed (a line says so where it
+    is skipped); the file tools on
+    the 10M-record file (``check_file``, ``filter_file`` against a numpy mask,
+    ``lookup_barcodes``, ``split_file`` and ``concat_files`` back to the same
+    bytes, ``subsample_file``, ``repair_file`` of a copy cut in mid-record,
+    ``decode_tsv_block`` against a per-line statement); and the
+    ``torch.profiler`` device time of one more ``export_fastq`` and
+    ``ingest_fastq``.
+
+Phases 1-10 name ``engine="device"`` where they assert launches; only
+``decode_file``, which takes no engine, runs under a scoped
+``IBU_AUTO_ENGINE=device``, as phase 11's legs do.
 
 The second-to-last line is a JSON object with one entry per kernel (the four
 production kernels, the six codec lab kernels with each mode's figures under
@@ -74,13 +101,18 @@ the H100's 3350 GB/s; the sort lab's own count for its kernels, in which
 PyTorch computes the same function, that time (``library_ms``, else null:
 for ``digit_histogram`` the index pass and ``torch.bincount`` together, the
 call alone under ``bincount_ms``). The last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. The two record kernels also carry
+``fastq_launches``, their launches in phase 11's device legs.
 """
 
 from __future__ import annotations
 
+import contextlib
+import filecmp
 import functools
 import json
+import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -104,7 +136,15 @@ from ibu_tpu_torch.ops import stats as S
 from ibu_tpu_torch.ops.correct import variant_deltas
 from ibu_tpu_torch.ops.u64 import records_to_tensor
 from ibu_tpu_torch.parallel import device as D
+from ibu_tpu_torch.parallel import select as SEL
 from ibu_tpu_torch.validate import run_matrix
+
+try:
+    import zstandard  # noqa: F401 (optional: phase 11 skips its zstd leg without it)
+
+    HAVE_ZSTD = True
+except ImportError:
+    HAVE_ZSTD = False
 
 N_MAIN = 10_000_000
 N_SORTED = 1_000_000
@@ -122,6 +162,12 @@ ERROR_RATE = 0.2  # reads whose barcode carries one substituted base
 #: shard), and about 0.9M distinct (barcode, gene) pairs per count batch
 WF_BATCH = 1 << 20
 WF_MAX_PAIRS = 1 << 22
+N_FASTQ = 10_000_000  # reads of the FASTQ phase
+N_FASTQ_GZIP = 1_000_000  # reads of its gzip leg, and the slice held against numpy
+EXPORT_BATCH = 1 << 20  # export_fastq's default batch
+INGEST_BATCH = 200_000  # ingest_fastq's default batch
+FASTQ_READ_BYTES = 2 + 20 + 1 + 28 + 3 + 28 + 1  # 83 per bc16/umi12 read
+FILTER_BARCODES = 1_000
 BARCODE_POOL = 50_000  # a single-cell run's cells plus background
 GENES = 2_000  # index pool of the molecule phase (the count matrix's columns)
 BC_LEN, UMI_LEN = 16, 12
@@ -258,13 +304,34 @@ def check_kernels(card, n: int) -> int:
     return count
 
 
-def timed(step: str, fn):
+def wall(step: str, fn):
+    """``fn()`` and its wall time in seconds (one run, ended by a
+    synchronise), printed."""
     t0 = time.perf_counter()
     out = fn()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    log(f"wall: {step}: {time.perf_counter() - t0:.3f} s")
-    return out
+    dt = time.perf_counter() - t0
+    log(f"wall: {step}: {dt:.3f} s")
+    return out, dt
+
+
+def timed(step: str, fn):
+    return wall(step, fn)[0]
+
+
+@contextlib.contextmanager
+def forced_engine(engine: str):
+    """``IBU_AUTO_ENGINE=engine`` for the calls inside, then as it was."""
+    before = os.environ.get("IBU_AUTO_ENGINE")
+    os.environ["IBU_AUTO_ENGINE"] = engine
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["IBU_AUTO_ENGINE"]
+        else:
+            os.environ["IBU_AUTO_ENGINE"] = before
 
 
 def main_path(card, n_main: int, n_sorted: int, workdir: Path) -> None:
@@ -277,9 +344,11 @@ def main_path(card, n_main: int, n_sorted: int, workdir: Path) -> None:
 
     K.encode_records.launches = 0
     K.decode_records.launches = 0
-    records = timed(f"encode_batch {n_main}", lambda: PL.encode_batch(bc, umi, idx, device=card))
+    records = timed(f"encode_batch {n_main}", lambda: PL.encode_batch(
+        bc, umi, idx, engine="device", device=card))
     require(records.tobytes() == oracle.tobytes(), "encode_batch equals the host codec")
-    got = timed(f"decode_batch {n_main}", lambda: PL.decode_batch(records, BC_LEN, UMI_LEN, device=card))
+    got = timed(f"decode_batch {n_main}", lambda: PL.decode_batch(
+        records, BC_LEN, UMI_LEN, engine="device", device=card))
     for a, b, what in zip(got, (bc, umi, idx), ("barcodes", "UMIs", "indices")):
         require(np.array_equal(a, b), f"decode_batch gives back the {what}")
 
@@ -296,7 +365,11 @@ def main_path(card, n_main: int, n_sorted: int, workdir: Path) -> None:
         w.write_batch(want)
     require(Path(sorted_path).read_bytes() == Path(oracle_path).read_bytes(),
             "encode_sorted_file is byte-identical to the numpy oracle")
-    hdr, dbc, dumi, didx = timed(f"decode_file {n_sorted}", lambda: PL.decode_file(sorted_path, device=card))
+    before = K.decode_records.launches
+    with forced_engine("device"):  # decode_file takes no engine
+        hdr, dbc, dumi, didx = timed(f"decode_file {n_sorted}",
+                                     lambda: PL.decode_file(sorted_path, device=card))
+    require(K.decode_records.launches == before + 1, "decode_file launched decode_records once")
     require(hdr.sorted() and (hdr.bc_len, hdr.umi_len) == (BC_LEN, UMI_LEN), "decode_file header")
     require(np.array_equal(dbc, C.np_unpack(want["barcode"], BC_LEN)), "decode_file barcodes")
     require(np.array_equal(dumi, C.np_unpack(want["umi"], UMI_LEN)), "decode_file UMIs")
@@ -856,11 +929,283 @@ def workflow_phase(card, reads: int, workdir: Path) -> None:
         f"({(entries - len(missing)) / len(truth):.1%} coverage)")
 
 
+def pinned_memory(reset: bool = False) -> str:
+    """Pinned host memory the caching allocator holds now and at its peak,
+    where this torch reports it; ``reset`` starts a new peak."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None or not torch.cuda.is_available():
+        return "not reported by this torch"
+    if reset and hasattr(torch.cuda, "reset_peak_host_memory_stats"):
+        torch.cuda.reset_peak_host_memory_stats()
+    s = stats()
+    return ", ".join(f"{key} {s[key] / 2**20:.0f} MiB"
+                     for key in ("allocated_bytes.current", "allocated_bytes.peak") if key in s)
+
+
+def fastq_statement(path: str, records: np.ndarray, start: int = 0) -> None:
+    """Hold the ``len(records)`` reads from read ``start`` of the FASTQ at
+    ``path`` against a numpy statement of the format: ``@r`` and the index as
+    20 decimal digits, the barcode then the UMI, ``+``, and one ``I`` per
+    base."""
+    m = len(records)
+    with open(path, "rb") as f:
+        f.seek(FASTQ_READ_BYTES * start)
+        got = np.frombuffer(f.read(FASTQ_READ_BYTES * m), dtype=np.uint8)
+    got = got.reshape(m, FASTQ_READ_BYTES)
+    require(bool((got[:, 0] == ord("@")).all() and (got[:, 1] == ord("r")).all()),
+            "every read name starts with @r")
+    digits = got[:, 2:22].astype(np.uint64) - np.uint64(ord("0"))
+    require(bool((digits <= 9).all()), "read names are decimal digits")
+    names = (digits * (np.uint64(10) ** np.arange(19, -1, -1, dtype=np.uint64))).sum(axis=1)
+    require(np.array_equal(names, records["index"]),
+            "read names are the record indices")
+    for col in (22, 51, 53, 82):
+        require(bool((got[:, col] == ord("\n")).all()), f"column {col} is a newline")
+    require(np.array_equal(got[:, 23:39], C.np_unpack(records["barcode"], BC_LEN)),
+            "the sequence starts with the barcode")
+    require(np.array_equal(got[:, 39:51], C.np_unpack(records["umi"], UMI_LEN)),
+            "the UMI follows the barcode")
+    require(bool((got[:, 52] == ord("+")).all()), "the third line is +")
+    require(bool((got[:, 54:82] == ord("I")).all()), "the quality is I for every base")
+
+
+def check_fastq_shapes(card, records: np.ndarray) -> None:
+    """Both record kernels against their plain versions, exactly, on the
+    file's own records at each batch shape the FASTQ path gives them: the
+    export's full and tail batches (decode) and the ingest's (encode, on the
+    rows those records decode to)."""
+    n = len(records)
+    shapes = {"export batch": records[:EXPORT_BATCH], "ingest batch": records[:INGEST_BATCH]}
+    for label, batch in (("export tail", EXPORT_BATCH), ("ingest tail", INGEST_BATCH)):
+        if n % batch:
+            shapes[label] = records[n - n % batch:]
+    for label, part in shapes.items():
+        words = records_to_tensor(part, card)
+        rows = K.decode_records(words, BC_LEN, UMI_LEN)
+        err = max_abs_err(rows, K.plain_decode_records(words, BC_LEN, UMI_LEN))
+        require(err == 0.0, f"decode_records at the {label}'s {len(part)} rows: max_abs_err {err}")
+        packed = K.encode_records(*rows)
+        err = max_abs_err([packed], [K.plain_encode_records(*rows)])
+        require(err == 0.0, f"encode_records at the {label}'s {len(part)} rows: max_abs_err {err}")
+        require(torch.equal(packed, words), f"the {label} encodes back to its records")
+        torch.cuda.synchronize()
+        log(f"fastq: kernels equal their plain versions at the {label}'s {len(part)} rows "
+            "(max_abs_err 0)")
+
+
+def leftovers(workdir: Path) -> list[str]:
+    return sorted(p.name for p in workdir.iterdir() if ".run" in p.name or ".sorted" in p.name)
+
+
+def fastq_phase(card, n: int, n_small: int, workdir: Path) -> dict:
+    """Phase 11: FASTQ export and ingest through the entry points a user
+    calls, on the card and on the host engine, engine auto-selection, and the
+    file tools. Returns the codec kernels' launches in the device legs."""
+    rng = np.random.default_rng(SEED + 11)
+    bc = ACGT[rng.integers(0, 4, (n, BC_LEN), dtype=np.uint8)]
+    umi = ACGT[rng.integers(0, 4, (n, UMI_LEN), dtype=np.uint8)]
+    src, fq, back = (str(workdir / name) for name in ("src.ibu", "a.fastq", "back.ibu"))
+    timed(f"fastq encode_sorted_file {n}", lambda: PL.encode_sorted_file(src, bc, umi, device=card))
+    del bc, umi
+    records = np.asarray(MmapReader(src).records)
+    export_batches, ingest_batches = -(-n // EXPORT_BATCH), -(-n // INGEST_BATCH)
+    walls = {}
+    check_fastq_shapes(card, records)
+
+    # the device legs, with the launches counted
+    os.environ["IBU_AUTO_ENGINE"] = "device"
+    reset_launches()
+    got, walls["export device"] = wall(f"fastq export_fastq device {n}",
+                                       lambda: PL.export_fastq(src, fq, device=card))
+    launches = read_launches()
+    require(got == n, "export_fastq returns the read count")
+    require(launches["decode_records"] == export_batches and launches["encode_records"] == 0,
+            f"decode_records launched once per batch ({export_batches}): {launches}")
+    require(os.path.getsize(fq) == FASTQ_READ_BYTES * n, "the FASTQ holds 83 bytes per read")
+    fastq_statement(fq, records[:n_small])
+    fastq_statement(fq, records[n - n_small:], start=n - n_small)
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    log(f"fastq: pinned host memory before the ingest (peak reset): {pinned_memory(reset=True)}")
+    reset_launches()
+    got, walls["ingest device"] = wall(f"fastq ingest_fastq device {n}",
+                                       lambda: PL.ingest_fastq(fq, back, BC_LEN, UMI_LEN, device=card))
+    ingest_launches = read_launches()
+    launches["encode_records"] = ingest_launches["encode_records"]
+    flow = ("out of core: native sort of 32 MB chunks, spilled runs, one merge"
+            if native.available() else "in memory: device sort")
+    log(f"fastq: ingest flow: {flow}; launches {ingest_launches}; pinned host memory after "
+        f"it: {pinned_memory()}; peak RSS {rss0 / 2**20:.2f} GiB before the ingest, "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB after")
+    require(native.available(), f"the host library built: {native.load_error()}")
+    require(got == n, "ingest_fastq returns the read count")
+    require(ingest_launches["encode_records"] == ingest_batches
+            and ingest_launches["decode_records"] == 0,
+            f"encode_records launched once per batch ({ingest_batches}): {ingest_launches}")
+    # export writes reads in sorted order, so ingest's read numbers are the ranks
+    want = records.copy()
+    want["index"] = np.arange(n, dtype=np.uint64)
+    header = Header.new(BC_LEN, UMI_LEN)
+    header.set_sorted()
+    require(Path(back).read_bytes() == header.as_bytes() + want.tobytes(),
+            "ingest(export(f)) is f with arange as its index column, byte for byte")
+    del want
+    require(not leftovers(workdir), f"no run file is left: {leftovers(workdir)}")
+
+    # the host legs: the same bytes
+    os.environ["IBU_AUTO_ENGINE"] = "host"
+    fq_host, back_host = str(workdir / "a_host.fastq"), str(workdir / "back_host.ibu")
+    reset_launches()
+    _, walls["export host"] = wall(f"fastq export_fastq host {n}",
+                                   lambda: PL.export_fastq(src, fq_host, device=card))
+    require(filecmp.cmp(fq, fq_host, shallow=False), "the host engine exports the same FASTQ")
+    os.unlink(fq_host)
+    _, walls["ingest host"] = wall(f"fastq ingest_fastq host {n}",
+                                   lambda: PL.ingest_fastq(fq, back_host, BC_LEN, UMI_LEN, device=card))
+    require(filecmp.cmp(back, back_host, shallow=False), "the host engine ingests the same file")
+    require(all(v == 0 for v in read_launches().values()), "the host engine launches no kernel")
+    os.unlink(back_host)
+    os.unlink(back)
+    log("fastq: walls (one run each): " + ", ".join(
+        f"{leg} {dt:.3f} s ({n / dt / 1e6:.2f} M reads/s)" for leg, dt in walls.items()))
+
+    # what "auto" decides on this card
+    del os.environ["IBU_AUTO_ENGINE"]
+    SEL.reset_probe_memo()
+    codec = SEL.auto_codec_engine(device=card)
+    stats_engine = SEL.auto_stats_engine(src, n, device=card)
+    binary = SEL.auto_device_or_host(device=card)
+    log(f"fastq: auto: codec -> {codec}, stats -> {stats_engine}, histogram -> {binary}; probed "
+        + ", ".join(f"{k} {v:.4g}" for k, v in SEL._MEMO.items() if isinstance(v, float)))
+    require(codec in ("device", "host") and binary in ("device", "host")
+            and stats_engine in ("device", "native", "host"), "auto names an engine")
+
+    # the compressed legs, with the default engine: gzip in and gzip out, and
+    # zstd out where the zstandard module is installed
+    small = str(workdir / "small.ibu")
+    write_ibu(Path(small), records[:n_small], sorted_flag=True)
+    fq_gz = str(workdir / "small.fastq.gz")
+    timed(f"fastq export_fastq gzip {n_small}", lambda: PL.export_fastq(small, fq_gz, device=card))
+    want = records[:n_small].copy()
+    want["index"] = np.arange(n_small, dtype=np.uint64)
+    for codec_name, suffix in (("gzip", ".gz"), ("zstd", ".zst")):
+        if codec_name == "zstd" and not HAVE_ZSTD:
+            log("fastq: zstd leg SKIPPED (no zstandard module): ingest_fastq's compression "
+                "into place ran for gzip only")
+            continue
+        packed = str(workdir / f"small.ibu{suffix}")
+        got = timed(f"fastq ingest_fastq gzip to {codec_name} {n_small}",
+                    lambda: PL.ingest_fastq(fq_gz, packed, BC_LEN, UMI_LEN, device=card))
+        reader = Reader.from_path(packed)
+        round_trip = np.concatenate(list(reader.batches()))
+        require(got == n_small and reader.header().sorted()
+                and np.array_equal(round_trip, want),
+                f"the gzip to {codec_name} leg gives back the records")
+        require(not leftovers(workdir), f"no run file is left: {leftovers(workdir)}")
+        os.unlink(packed)
+        del round_trip
+    os.unlink(small)
+    os.unlink(fq_gz)
+    del want
+
+    file_tools(src, records, n_small, workdir)
+
+    # device time of one more run of each leg
+    os.environ["IBU_AUTO_ENGINE"] = "device"
+    again = {"export_fastq": lambda: PL.export_fastq(src, fq, device=card),
+             "ingest_fastq": lambda: PL.ingest_fastq(fq, back, BC_LEN, UMI_LEN, device=card)}
+    for name, fn in again.items():
+        t0 = time.perf_counter()
+        ms = device_ms(fn, [()], iters=1, warm=False)
+        dt = time.perf_counter() - t0
+        note = "not measured" if ms is None else f"{ms:.3f} ms ({ms / (dt * 1e3):.2%} of the wall)"
+        log(f"fastq profile: {name}: device {note}; wall under the profiler {dt:.3f} s")
+    for name, fn in again.items():
+        for line in host_profile(fn):
+            log(f"fastq host profile: {name}: {line}")
+    return launches
+
+
+def file_tools(src: str, records: np.ndarray, n_small: int, workdir: Path) -> None:
+    """The host file tools on the 10M-record sorted file."""
+    n = len(records)
+    rng = np.random.default_rng(SEED + 12)
+    report = timed("tools check_file", lambda: PL.check_file(src))
+    require(report["ok"] and report["records"] == n and report["first_order_violation"] is None
+            and not report["errors"] and not report["warnings"], f"check_file passes: {report}")
+
+    allow = records["barcode"][rng.choice(n, FILTER_BARCODES, replace=False)]
+    kept = str(workdir / "kept.ibu")
+    stats = timed(f"tools filter_file {FILTER_BARCODES} barcodes",
+                  lambda: PL.filter_file(src, kept, allow))
+    mask = np.isin(records["barcode"], allow)
+    got = np.asarray(MmapReader(kept).records)
+    require(stats == {"records": n, "kept": int(mask.sum()), "allowlist": len(np.unique(allow))}
+            and np.array_equal(got, records[mask]) and MmapReader(kept).header().sorted(),
+            f"filter_file equals the numpy mask: {stats}")
+    found = timed("tools lookup_barcodes", lambda: PL.lookup_barcodes(src, allow))
+    require(np.array_equal(found, got), "lookup_barcodes gives the filter's records")
+    few = timed("tools lookup_barcodes 8 queries", lambda: PL.lookup_barcodes(src, allow[:8]))
+    require(np.array_equal(few, records[np.isin(records["barcode"], allow[:8])]),
+            "lookup_barcodes by bisection equals the numpy mask")
+    os.unlink(kept)
+
+    shards = timed("tools split_file 4", lambda: PL.split_file(src, str(workdir / "shard{}.ibu"), 4))
+    cat = str(workdir / "cat.ibu")
+    stats = timed("tools concat_files", lambda: PL.concat_files(shards, cat))
+    require(stats == {"records": n, "files": 4, "sorted": True}
+            and filecmp.cmp(cat, src, shallow=False),
+            f"split_file then concat_files gives back the file, sorted flag set: {stats}")
+    for path in shards + [cat]:
+        os.unlink(path)
+
+    sub = str(workdir / "sub.ibu")
+    stats = timed(f"tools subsample_file {n_small}",
+                  lambda: PL.subsample_file(src, sub, n=n_small, seed=0))
+    got = np.asarray(MmapReader(sub).records)
+    # the source's indices are a permutation of arange(n): where each sits
+    place = np.empty(n, dtype=np.int64)
+    place[records["index"].astype(np.int64)] = np.arange(n)
+    at = place[got["index"].astype(np.int64)]
+    require(stats == {"records": n, "sampled": n_small, "seed": 0} and len(got) == n_small
+            and MmapReader(sub).header().sorted()
+            and bool((np.diff(at) > 0).all()) and np.array_equal(records[at], got),
+            f"subsample_file gives a sorted subset of exactly {n_small}: {stats}")
+    os.unlink(sub)
+
+    whole, tail = n * 7 // 10 + 123, 11  # a cut 11 bytes into a record
+    torn, fixed = str(workdir / "torn.ibu"), str(workdir / "fixed.ibu")
+    with open(src, "rb") as f, open(torn, "wb") as out:
+        out.write(f.read(32 + 24 * whole + tail))
+    stats = timed("tools repair_file", lambda: PL.repair_file(torn, fixed))
+    require(stats["records"] == whole and stats["dropped_bytes"] == tail and stats["sorted"]
+            and np.array_equal(np.asarray(MmapReader(fixed).records), records[:whole])
+            and MmapReader(fixed).header().sorted(),
+            f"repair_file keeps the whole records before the cut: {stats}")
+    report = PL.check_file(torn)
+    require(not report["ok"] and report["records"] == whole, "check_file reports the torn tail")
+    os.unlink(torn)
+    os.unlink(fixed)
+
+    part = records[:n_small]
+    bc_rows, umi_rows, idx = PL.decode_batch(part, BC_LEN, UMI_LEN, engine="host")
+    mixed = idx.copy()
+    mixed[::3] *= np.uint64(7919)  # several digit counts in one block
+    for label, index in (("one width", idx + np.uint64(10**6)), ("mixed widths", mixed)):
+        text = timed(f"tools decode_tsv_block {label} {n_small}",
+                     lambda: PL.decode_tsv_block(bc_rows, umi_rows, index))
+        lines = text.split(b"\n")
+        require(len(lines) == n_small + 1 and lines[-1] == b"", "one TSV line per record")
+        for k in rng.choice(n_small, 10_000, replace=False).tolist():
+            want = b"%s\t%s\t%d" % (bytes(bc_rows[k]), bytes(umi_rows[k]), int(index[k]))
+            require(lines[k] == want, f"TSV line {k} is {want!r}, got {lines[k]!r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     card = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -906,6 +1251,18 @@ def main() -> int:
         workflow_phase(card, N_READS, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log(f"elapsed before the FASTQ phase: {time.perf_counter() - t_start:.1f} s")
+    workdir.mkdir(parents=True, exist_ok=True)
+    try:
+        fastq_launches = fastq_phase(card, N_FASTQ, N_FASTQ_GZIP, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        os.environ.pop("IBU_AUTO_ENGINE", None)
+    log(f"launches on the FASTQ path (device legs): {fastq_launches}")
+    for entry in kernels:
+        if entry["name"] in ("encode_records", "decode_records"):
+            entry["fastq_launches"] = fastq_launches[entry["name"]]
+    log(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

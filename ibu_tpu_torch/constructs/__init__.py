@@ -9,7 +9,10 @@ from ibu_tpu_torch.constructs.record import (
     RECORD_DTYPE,
     RECORD_SIZE,
     Record,
+    empty_records,
     make_records,
+    records_from_bytes,
+    records_to_bytes,
 )
 
 __all__ = [
@@ -20,5 +23,8 @@ __all__ = [
     "RECORD_DTYPE",
     "RECORD_SIZE",
     "Record",
+    "empty_records",
     "make_records",
+    "records_from_bytes",
+    "records_to_bytes",
 ]

@@ -119,5 +119,27 @@ class Header:
             reserved=reserved,
         )
 
+    def to_dict(self) -> dict:
+        """Structured serialization (the reference's optional serde feature)."""
+        return {
+            "magic": self.magic,
+            "version": self.version,
+            "bc_len": self.bc_len,
+            "umi_len": self.umi_len,
+            "flags": self.flags,
+            "reserved": list(self.reserved),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Header":
+        return cls(
+            magic=d["magic"],
+            version=d["version"],
+            bc_len=d["bc_len"],
+            umi_len=d["umi_len"],
+            flags=d["flags"],
+            reserved=bytes(d["reserved"]),
+        )
+
     def __hash__(self) -> int:
         return hash(self.as_bytes())

@@ -75,6 +75,11 @@ class Record:
         return self._key() >= other._key()
 
 
+def empty_records(n: int) -> np.ndarray:
+    """Zeroed structured record array of length ``n``."""
+    return np.zeros(n, dtype=RECORD_DTYPE)
+
+
 def make_records(barcode: np.ndarray, umi: np.ndarray, index: np.ndarray) -> np.ndarray:
     """Assemble a structured record array from three ``uint64`` columns."""
     out = np.empty(len(barcode), dtype=RECORD_DTYPE)
@@ -82,3 +87,20 @@ def make_records(barcode: np.ndarray, umi: np.ndarray, index: np.ndarray) -> np.
     out["umi"] = umi
     out["index"] = index
     return out
+
+
+def records_to_bytes(records: np.ndarray) -> bytes:
+    """Serialize a record batch to wire bytes."""
+    if records.dtype != RECORD_DTYPE:
+        raise ValueError(f"expected dtype {RECORD_DTYPE}, got {records.dtype}")
+    return np.ascontiguousarray(records).tobytes()
+
+
+def records_from_bytes(data: bytes | bytearray | memoryview) -> np.ndarray:
+    """Parse wire bytes into a structured record array (copies once)."""
+    buf = memoryview(data)
+    if len(buf) % RECORD_SIZE != 0:
+        raise ValueError(
+            f"byte length {len(buf)} is not a multiple of RECORD_SIZE={RECORD_SIZE}"
+        )
+    return np.frombuffer(buf, dtype=RECORD_DTYPE).copy()

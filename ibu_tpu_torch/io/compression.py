@@ -119,6 +119,12 @@ class _ChainClosing:
                 except Exception:
                     pass
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
 
 class _ZstdFrameReader:
     """zstd decoder that detects truncation.
@@ -219,6 +225,17 @@ def wrap_decompress(stream: BinaryIO) -> BinaryIO:
     if not _HAVE_ZSTD:
         raise CompressionError("zstd-compressed input but the 'zstandard' module is unavailable")
     return _ChainClosing(_ZstdFrameReader(replayed), replayed)  # type: ignore[return-value]
+
+
+def as_buffered(stream) -> io.BufferedReader:
+    """Ensure ``stream`` supports buffered reads. Plain streams from
+    :func:`open_decompressed` already are :class:`io.BufferedReader`; a bare
+    ``read()``-only decompression chain goes under an empty-prefix
+    :class:`_PeekableStream`. Closing the result closes the whole chain
+    either way."""
+    if isinstance(stream, io.BufferedReader):
+        return stream
+    return io.BufferedReader(_PeekableStream(b"", stream), buffer_size=1 << 20)
 
 
 def open_decompressed(path: str) -> BinaryIO:

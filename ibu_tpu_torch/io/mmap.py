@@ -86,3 +86,15 @@ class MmapReader:
         if start >= self._len or end > self._len or end <= start:
             raise InvalidIndex(idx=end, max=self._len)
         return self._map[start:end]
+
+    def barcodes(self) -> np.ndarray:
+        """``uint64`` barcode column (zero-copy strided view)."""
+        return self._map["barcode"]
+
+    def umis(self) -> np.ndarray:
+        """``uint64`` UMI column (zero-copy strided view)."""
+        return self._map["umi"]
+
+    def indices(self) -> np.ndarray:
+        """``uint64`` index column (zero-copy strided view)."""
+        return self._map["index"]

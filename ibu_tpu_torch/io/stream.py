@@ -27,6 +27,8 @@ the copy (:func:`ibu_tpu_torch.parallel.device.bc16_hint`).
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from collections import deque
 from typing import Iterable, Iterator
 
@@ -64,6 +66,57 @@ def prefetched(items, depth: int):
         item = queue.popleft()
         fill()
         yield item
+
+
+def thread_prefetched(items, depth: int = 2):
+    """Produce ``items`` in a background thread, up to ``depth`` ahead (a
+    copy of :func:`ibu_tpu.io.stream.thread_prefetched`).
+
+    :func:`prefetched` runs production on the consumer's thread; this moves
+    it onto its own thread, so CPU-bound producers (gzip/zstd decompression,
+    FASTQ parsing) overlap the consumer's own work too: numpy and the native
+    parser release the GIL inside their loops. An exception raised by the
+    producer re-raises at the consumer's next pull; abandoning the generator
+    (an early ``break`` or ``close``) stops the producer promptly instead of
+    leaving it blocked on a full queue. The producer makes no CUDA call:
+    every launch and copy stays on the consumer's thread.
+    """
+    q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+    END = object()
+    stop = threading.Event()
+    err: list = []
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def produce():
+        try:
+            for item in items:
+                if not _put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 (re-raised in the consumer)
+            err.append(e)
+        finally:
+            _put(END)
+
+    t = threading.Thread(target=produce, daemon=True, name="ibu-prefetch")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is END:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
 
 
 class DeviceStream:

@@ -317,7 +317,9 @@ def test_correct_file_compressed_input(tmp_path):
 def stage_lines(text):
     """The stage lines with their timings, rates and paths taken out."""
     lines = [l for l in text.splitlines() if l.startswith("[")]
-    return [re.sub(r"\(\d[^)]*s\)|-> \S+", "", l) for l in lines]
+    # a timing stands alone in parentheses or closes them ("(... reads, 0.01s)");
+    # a path follows an arrow and holds a slash (a count after an arrow stays)
+    return [re.sub(r"\(\d[^)]*s\)|, [\d.]+s\)|-> \S*/\S+", "", l) for l in lines]
 
 
 def test_workflow_stage_counts_equal_the_reference(tmp_path, capsys):

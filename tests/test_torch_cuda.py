@@ -552,3 +552,107 @@ def test_sort_lab_wrappers_refuse_unaligned_tensors(card):
                  lambda: SK.dynamic_store(keys, offs)):
         with pytest.raises(ValueError, match="16-byte boundary"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# FASTQ export and ingest, and engine auto-selection, on the card
+# ---------------------------------------------------------------------------
+
+FASTQ_READS = 300_000
+EXPORT_BATCH = 70_001  # neither batch divides the read count
+INGEST_BATCH = 64_007
+
+
+@pytest.fixture
+def fresh_select(monkeypatch):
+    from ibu_tpu_torch.parallel import select
+
+    monkeypatch.delenv("IBU_AUTO_ENGINE", raising=False)
+    select.reset_probe_memo()
+    yield select
+    select.reset_probe_memo()
+
+
+def test_fastq_export_and_ingest_on_card_equal_the_cpu(card, tmp_path, fresh_select, monkeypatch):
+    monkeypatch.setenv("IBU_AUTO_ENGINE", "device")
+    n = FASTQ_READS
+    src = str(tmp_path / "src.ibu")
+    TPL.encode_sorted_file(src, rows(n, 16, 41), rows(n, 12, 42), device=card)
+    files = {}
+    launches = {}
+    for tag, device in (("card", card), ("cpu", "cpu")):
+        fq, back = str(tmp_path / f"{tag}.fastq"), str(tmp_path / f"{tag}.ibu")
+        K.decode_records.launches = K.encode_records.launches = 0
+        assert TPL.export_fastq(src, fq, batch_records=EXPORT_BATCH, device=device) == n
+        assert TPL.ingest_fastq(fq, back, 16, 12, batch=INGEST_BATCH, device=device) == n
+        launches[tag] = (K.decode_records.launches, K.encode_records.launches)
+        files[tag] = (fq, back)
+    # one launch per batch on the card, none on the CPU
+    assert launches["card"] == (-(-n // EXPORT_BATCH), -(-n // INGEST_BATCH))
+    assert launches["cpu"] == (0, 0)
+    for a, b in zip(files["card"], files["cpu"]):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
+    # export writes reads in sorted order, so the file comes back with
+    # arange as its index column
+    want = np.asarray(MmapReader(src).records).copy()
+    want["index"] = np.arange(n, dtype=np.uint64)
+    assert np.array_equal(np.asarray(MmapReader(files["card"][1]).records), want)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "card.fastq", "card.ibu", "cpu.fastq", "cpu.ibu", "src.ibu"]
+
+
+def test_fastq_host_engine_on_card_machine_launches_nothing(card, tmp_path, fresh_select,
+                                                            monkeypatch):
+    n = 50_000
+    src = str(tmp_path / "src.ibu")
+    TPL.encode_sorted_file(src, rows(n, 16, 43), rows(n, 12, 44), device=card)
+    outs = {}
+    for engine in ("device", "host"):
+        monkeypatch.setenv("IBU_AUTO_ENGINE", engine)
+        K.decode_records.launches = K.encode_records.launches = 0
+        fq, back = str(tmp_path / f"{engine}.fastq.gz"), str(tmp_path / f"{engine}.ibu.gz")
+        TPL.export_fastq(src, fq, device=card)
+        TPL.ingest_fastq(fq, back, 16, 12, device=card)
+        assert (K.decode_records.launches > 0) == (engine == "device")
+        assert (K.encode_records.launches > 0) == (engine == "device")
+        from ibu_tpu_torch import Reader
+
+        outs[engine] = np.concatenate(list(Reader.from_path(back).batches()))
+    assert np.array_equal(outs["device"], outs["host"]) and len(outs["host"]) == n
+
+
+def test_auto_on_card_picks_an_engine_and_says_so(card, tmp_path, fresh_select, capsys):
+    select = fresh_select
+    codec = select.auto_codec_engine(device=card)
+    err = capsys.readouterr().err
+    assert codec in ("device", "host")
+    assert err.startswith("codec engine auto: device link ~") and f"-> {codec} " in err
+    assert select._MEMO["device_gbps"] > 0 and select._MEMO["codec_engine"] == codec
+    assert select.auto_codec_engine(device=card) == codec and capsys.readouterr().err == ""
+
+    binary = select.auto_device_or_host(device=card, what="histogram")
+    err = capsys.readouterr().err
+    assert binary in ("device", "host") and err.startswith("engine auto (histogram): device feed ~")
+
+    n = 200_000
+    path = str(tmp_path / "s.ibu")
+    i = np.arange(n, dtype=np.uint64)
+    with Writer.from_path(path, Header.new(16, 12)) as w:
+        w.write_batch(make_records(i, i * np.uint64(3), i))
+    stats = TPL.file_stats(path, device=card)
+    err = capsys.readouterr().err
+    assert stats["engine"] in ("device", "native", "host") and f"-> {stats['engine']} " in err
+    assert stats["count"] == n and stats["index_sum"] == n * (n - 1) // 2
+    # the default engines give the bytes of the forced ones
+    bc, umi = rows(1000, 16, 45), rows(1000, 12, 46)
+    auto = TPL.encode_batch(bc, umi, i[:1000], device=card)
+    assert auto.tobytes() == TPL.encode_batch(bc, umi, i[:1000], engine="device",
+                                              device=card).tobytes()
+    for a, b in zip(TPL.decode_batch(auto, 16, 12, device=card), (bc, umi, i[:1000])):
+        assert np.array_equal(a, b)
+
+
+def test_feed_probe_on_card_times_pinned_copies(card, fresh_select):
+    gbps = fresh_select.measure_device_feed_gbps(device=card)
+    assert 0.05 < gbps < 200

@@ -14,17 +14,24 @@ import torch
 from ibu_tpu_torch import Header, MmapReader, Writer, make_records
 from ibu_tpu_torch import pipelines as PL
 from ibu_tpu_torch import validate as V
+from ibu_tpu_torch.examples import fastq_ingest as FI
+from ibu_tpu_torch.examples import roundtrip as RT
 from ibu_tpu_torch.examples import workflow as W
 from ibu_tpu_torch.io.stream import DeviceStream
 from ibu_tpu_torch.ops import correct as TC
 from ibu_tpu_torch.ops import knee as TK
 from ibu_tpu_torch.parallel import device as D
+from ibu_tpu_torch.parallel import select as SEL
 from ibu_tpu_torch.utils.device import resolve_device, select_device
 
 
 @pytest.fixture(autouse=True)
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("IBU_AUTO_ENGINE", raising=False)
+    SEL.reset_probe_memo()
+    yield
+    SEL.reset_probe_memo()
 
 
 @pytest.fixture
@@ -109,7 +116,24 @@ ENTRY_POINTS = {
     "correct_file": lambda p: PL.correct_file(p, p + ".fixed", [7, 14]),
     "correct_batch": lambda p: TC.correct_batch(records_of(p)["barcode"], np.array([7], np.uint64), 16),
     "torch_knee_index": lambda p: TK.torch_knee_index(np.array([9, 5, 1])),
+    "decode_batch auto": lambda p: PL.decode_batch(records_of(p), 16, 12),
+    "file_stats auto": lambda p: PL.file_stats(p),
+    "export_fastq": lambda p: PL.export_fastq(p, p + ".fastq"),
+    "ingest_fastq": lambda p: PL.ingest_fastq(fastq_of(p), p + ".back", 16, 12),
+    "auto_codec_engine": lambda p: SEL.auto_codec_engine(),
+    "auto_stats_engine": lambda p: SEL.auto_stats_engine(p, 64),
+    "auto_device_or_host": lambda p: SEL.auto_device_or_host(),
+    "measure_device_feed_gbps": lambda p: SEL.measure_device_feed_gbps(),
 }
+
+
+def fastq_of(path):
+    """A FASTQ of ``path``'s records, written beside it by the host engine."""
+    records = records_of(path)
+    bc, umi, idx = PL.decode_batch(records, 16, 12, engine="host")
+    with open(path + ".fastq", "wb") as f:
+        f.write(PL._fastq_block(bc, umi, idx, ord("I")))
+    return path + ".fastq"
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
@@ -143,6 +167,52 @@ def test_the_workflow_calls_run_on_the_cpu_by_name(ibu_file):
     assert PL.count_matrix(p, p + ".h")["entries"] == 64
     assert PL.call_cells(p, p + ".h.txt")["barcodes"] == 64
     assert PL.dedup_file(p + ".sorted", p + ".dd")["molecules"] == 64
+
+
+def test_the_fastq_calls_run_on_the_cpu_by_name(ibu_file):
+    p = ibu_file
+    PL.sort_file_device(p, p + ".sorted", device="cpu")
+    assert PL.export_fastq(p + ".sorted", p + ".fastq", device="cpu") == 64
+    assert PL.ingest_fastq(p + ".fastq", p + ".back", 16, 12, device="cpu") == 64
+    back, want = records_of(p + ".back"), records_of(p + ".sorted")
+    assert np.array_equal(back["barcode"], want["barcode"]) and MmapReader(p + ".back").header().sorted()
+    assert SEL.auto_codec_engine(device="cpu") in ("host", "device")
+    assert SEL.auto_device_or_host(device="cpu") == "host"
+    assert SEL.auto_stats_engine(p, 64, device="cpu") in ("device", "native", "host")
+    # the file tools are host code and need no device
+    assert PL.check_file(p)["ok"] and PL.filter_file(p, p + ".kept", [7, 14])["kept"] == 2
+    assert len(PL.lookup_barcodes(p + ".sorted", [7])) == 1
+    assert PL.subsample_file(p, p + ".sub", n=5)["sampled"] == 5
+    assert PL.repair_file(p, p + ".fixed")["records"] == 64
+    assert PL.concat_files(PL.split_file(p, p + ".{}.part", 3), p + ".cat")["records"] == 64
+
+
+@pytest.mark.parametrize("env", ["host", "device"])
+def test_the_override_decides_before_the_device_is_looked_up(ibu_file, monkeypatch, env):
+    """``IBU_AUTO_ENGINE`` decides first, as in the JAX package: the host
+    engine then needs no card, and the device engine still raises."""
+    monkeypatch.setenv("IBU_AUTO_ENGINE", env)
+    if env == "host":
+        assert PL.export_fastq(ibu_file, ibu_file + ".fastq") == 64
+        assert PL.file_stats(ibu_file)["engine"] == "host"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            PL.export_fastq(ibu_file, ibu_file + ".fastq")
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            PL.file_stats(ibu_file)
+
+
+@pytest.mark.parametrize("name,module,argv", [
+    ("fastq_ingest", FI, ["--reads", "100"]), ("roundtrip", RT, ["--records", "0.001"])])
+def test_the_examples_without_a_card_exit_2(tmp_path, capsys, monkeypatch, name, module, argv):
+    monkeypatch.chdir(tmp_path)
+    assert module.main(argv) == 2
+    printed = capsys.readouterr().out
+    assert f"{name}: no CUDA card" in printed and "--device cpu" in printed
+    assert module.main([*argv, "--device", "cuda"]) == 2
+    assert not list(tmp_path.iterdir())
+    assert module.main([*argv, "--device", "cpu"]) == 0
+    assert "cleaned up" in capsys.readouterr().out and not list(tmp_path.iterdir())
 
 
 def test_workflow_without_a_card_exits_2(tmp_path, capsys):

@@ -26,6 +26,8 @@ def test_port_loads_no_jax():
         "import ibu_tpu_torch.labs.sort_lab, ibu_tpu_torch.native\n"
         "import ibu_tpu_torch.ops.knee, ibu_tpu_torch.ops.correct\n"
         "import ibu_tpu_torch.examples.workflow\n"
+        "import ibu_tpu_torch.parallel.select, ibu_tpu_torch.parallel.host\n"
+        "import ibu_tpu_torch.examples.fastq_ingest, ibu_tpu_torch.examples.roundtrip\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -50,6 +52,13 @@ def _imported_roots(path):
             yield node.module
 
 
+def test_the_scan_covers_the_fastq_slice():
+    scanned = {str(p.relative_to(REPO)) for p in PORT_SOURCES}
+    for name in ("parallel/select.py", "parallel/host.py", "examples/fastq_ingest.py",
+                 "examples/roundtrip.py", "native.py", "pipelines.py"):
+        assert f"ibu_tpu_torch/{name}" in scanned
+
+
 @pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_neither_ibu_tpu_nor_jax(path):
     bad = [name for name in _imported_roots(path)
@@ -66,7 +75,9 @@ def test_every_port_module_loads_without_ibu_tpu_or_jax():
     ]
     assert "ibu_tpu_torch.labs.sort_lab" in modules
     for name in ("ibu_tpu_torch.ops.knee", "ibu_tpu_torch.ops.correct",
-                 "ibu_tpu_torch.examples", "ibu_tpu_torch.examples.workflow"):
+                 "ibu_tpu_torch.examples", "ibu_tpu_torch.examples.workflow",
+                 "ibu_tpu_torch.parallel.select", "ibu_tpu_torch.parallel.host",
+                 "ibu_tpu_torch.examples.fastq_ingest", "ibu_tpu_torch.examples.roundtrip"):
         assert name in modules
     code = (
         "import importlib, sys\n"

@@ -40,8 +40,13 @@ def test_encode_decode_batch_match_jax(bc_len, umi_len, engine):
 
 def test_engine_name_is_checked():
     bc, umi, idx = inputs(4)
-    with pytest.raises(ValueError, match="engine must be"):
-        TPL.encode_batch(bc, umi, idx, engine="auto")
+    records = TPL.encode_batch(bc, umi, idx, engine="host")
+    for call in (lambda: TPL.encode_batch(bc, umi, idx, engine="quantum", device=CPU),
+                 lambda: TPL.decode_batch(records, 16, 12, engine="native", device=CPU)):
+        with pytest.raises(ValueError, match="engine must be 'auto', 'device' or 'host', got"):
+            call()
+    # "auto" is an engine now, and the default, as in the JAX package
+    assert TPL.encode_batch(bc, umi, idx, engine="auto", device=CPU).tobytes() == records.tobytes()
 
 
 @pytest.mark.parametrize("hints", [{}, {"bc_len": 16, "umi_len": 12, "index_bits": 64}])
@@ -140,8 +145,15 @@ def test_file_stats_rejects_compressed_and_bad_engine(tmp_path):
     with pytest.raises(ValueError) as torch_err:
         TPL.file_stats(gz, engine="device", device=CPU)
     assert str(torch_err.value) == str(jax_err.value)
-    with pytest.raises(ValueError, match="engine must be device/native/host, got 'auto'"):
-        TPL.file_stats(str(FIXTURES / "one_record.ibu"), engine="auto")
+    plain = str(FIXTURES / "one_record.ibu")
+    with pytest.raises(ValueError) as jax_err:
+        JPL.file_stats(plain, engine="quantum")
+    with pytest.raises(ValueError, match="engine must be auto/device/native/host, got 'quantum'") \
+            as torch_err:
+        TPL.file_stats(plain, engine="quantum", device=CPU)
+    assert str(torch_err.value) == str(jax_err.value)
+    # "auto" is an engine now, and the default, as in the JAX package
+    assert TPL.file_stats(plain, engine="auto", device=CPU)["count"] == 1
 
 
 def test_slice_as_a_whole(tmp_path):
@@ -154,7 +166,8 @@ def test_slice_as_a_whole(tmp_path):
     j_dec = JPL.decode_file(j_path)
     for a, b in zip(t_dec[1:], j_dec[1:]):
         assert np.array_equal(a, b)
-    assert TPL.file_stats(t_path, device=CPU) == JPL.file_stats(j_path, engine="device")
+    assert TPL.file_stats(t_path, engine="device", device=CPU) == JPL.file_stats(
+        j_path, engine="device")
     order = np.lexsort((idx, TC.np_pack(umi), TC.np_pack(bc)))
     assert np.array_equal(t_dec[3], idx[order])
     assert MmapReader(t_path).len() == 1234
