@@ -54,8 +54,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     :func:`ibu_tpu_torch.examples.workflow.make_ground_truth`): ingest with
     ``encode_sorted_file``, ``call_cells(engine="device")`` (the called
     allowlist must equal the planted one), ``correct_file`` on the card (file
-    and statistics equal to ``device="cpu"``), ``dedup_file`` with the sort on
-    the card (byte-identical to a numpy statement of the rewrite) and
+    and statistics equal to ``device="cpu"``), ``sort_file_device`` of the
+    corrected file (byte-identical to ``native.sort_file``'s), ``dedup_file``
+    of the unsorted corrected file, sorted by ``native.sort_file`` as in the
+    reference (byte-identical to a numpy statement of the rewrite) and
     ``count_matrix(engine="device")`` (byte-identical to ``engine="host"``),
     every matrix entry in the planted truth. The codec kernels' launch
     counters are zeroed just before the phase; ``encode_records``' must be
@@ -65,8 +67,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     functions of one more run of those two and of ``dedup_file``;
 11. drive FASTQ → IBU → FASTQ at 10M reads (bc16/umi12): a sorted 10M-record
     file; both record kernels held exactly against their plain versions on
-    that file's records at every batch shape this path gives them (a 2^20-row
-    export batch, the export's tail batch, a 200,000-row ingest batch);
+    that file's records at every batch shape this path and phase 12's
+    ``decode`` give them (a 2^20-row export batch, the export's tail batch, a
+    200,000-row ingest batch, a ``Reader`` batch of
+    :data:`~ibu_tpu_torch.io.reader.DEFAULT_BUFFER_RECORDS` rows and the
+    ``Reader``'s tail batch);
     ``export_fastq`` to a FASTQ (held against a numpy statement on its first
     and its last 1M reads, the last spanning a batch boundary and the tail
     batch, and against 83 bytes per read) and ``ingest_fastq`` back, under
@@ -85,7 +90,27 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     bytes, ``subsample_file``, ``repair_file`` of a copy cut in mid-record,
     ``decode_tsv_block`` against a per-line statement); and the
     ``torch.profiler`` device time of one more ``export_fastq`` and
-    ``ingest_fastq``.
+    ``ingest_fastq``;
+12. drive the command line, ``python -m ibu_tpu_torch <command>``, each
+    command in a new process from the root of the checkout with no
+    ``--device``, on the files phases 10 and 11 leave (they keep them until
+    this phase ends): ``info`` of a one-record file (the startup floor);
+    ``sort``, ``info``, ``stats``, ``histogram --top 20``, ``cells --engine
+    device``, ``correct``, ``dedup --assume-sorted no`` and ``count`` on the
+    workflow's files, each output equal byte for byte to the same functions'
+    in-process output, and ``count --engine device``, which either equals the
+    host engine or refuses past ``max_pairs`` with exit 1 and the reference's
+    text; ``export-fastq``, ``ingest-fastq``, ``decode`` (its first and last
+    1M lines held against ``decode_tsv_block``), ``check --json``,
+    ``filter``, ``lookup``, ``split``, ``merge``, ``concat``, ``subsample``
+    and ``repair`` on the sorted 10M-record file, each equal to phase 11's
+    results; ``decode``, ``export-fastq`` and ``ingest-fastq`` once more
+    through ``ibu_tpu_torch.__main__.main`` under ``IBU_AUTO_ENGINE=device``
+    with the codec kernels' launch counters zeroed before each: one
+    ``decode_records`` launch per ``Reader`` batch, 10 and 50; and, beside
+    the rest, ``stats --engine device`` with ``CUDA_VISIBLE_DEVICES=""``,
+    which must exit 2 with one line on stderr and nothing on stdout. Each
+    command's wall is printed.
 
 Phases 1-10 name ``engine="device"`` where they assert launches; only
 ``decode_file``, which takes no engine, runs under a scoped
@@ -102,7 +127,8 @@ PyTorch computes the same function, that time (``library_ms``, else null:
 for ``digit_histogram`` the index pass and ``torch.bincount`` together, the
 call alone under ``bincount_ms``). The last line is
 ``{"ok": true, "device": {...}}``. The two record kernels also carry
-``fastq_launches``, their launches in phase 11's device legs.
+``fastq_launches``, their launches in phase 11's device legs, and
+``cli_launches``, their launches under phase 12's in-process commands.
 """
 
 from __future__ import annotations
@@ -117,6 +143,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -125,6 +152,7 @@ import torch
 from ibu_tpu_torch import Header, MmapReader, Reader, Writer, make_records, native
 from ibu_tpu_torch import pipelines as PL
 from ibu_tpu_torch.examples import workflow as WF
+from ibu_tpu_torch.io.reader import DEFAULT_BUFFER_RECORDS
 from ibu_tpu_torch.labs import _harness as LH
 from ibu_tpu_torch.labs import _kernels as LK
 from ibu_tpu_torch.labs import _sort_kernels as SK
@@ -304,20 +332,18 @@ def check_kernels(card, n: int) -> int:
     return count
 
 
-def wall(step: str, fn):
-    """``fn()`` and its wall time in seconds (one run, ended by a
-    synchronise), printed."""
+def wall(step: str, fn, walls: dict | None = None, key: str | None = None):
+    """``fn()``, with its wall time in seconds (one run, ended by a
+    synchronise) printed and, given ``walls``, kept there under ``key``."""
     t0 = time.perf_counter()
     out = fn()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     log(f"wall: {step}: {dt:.3f} s")
-    return out, dt
-
-
-def timed(step: str, fn):
-    return wall(step, fn)[0]
+    if walls is not None:
+        walls[key] = dt
+    return out
 
 
 @contextlib.contextmanager
@@ -344,17 +370,17 @@ def main_path(card, n_main: int, n_sorted: int, workdir: Path) -> None:
 
     K.encode_records.launches = 0
     K.decode_records.launches = 0
-    records = timed(f"encode_batch {n_main}", lambda: PL.encode_batch(
+    records = wall(f"encode_batch {n_main}", lambda: PL.encode_batch(
         bc, umi, idx, engine="device", device=card))
     require(records.tobytes() == oracle.tobytes(), "encode_batch equals the host codec")
-    got = timed(f"decode_batch {n_main}", lambda: PL.decode_batch(
+    got = wall(f"decode_batch {n_main}", lambda: PL.decode_batch(
         records, BC_LEN, UMI_LEN, engine="device", device=card))
     for a, b, what in zip(got, (bc, umi, idx), ("barcodes", "UMIs", "indices")):
         require(np.array_equal(a, b), f"decode_batch gives back the {what}")
 
     sorted_path = str(workdir / "sorted.ibu")
     oracle_path = str(workdir / "oracle.ibu")
-    timed(f"encode_sorted_file {n_sorted}",
+    wall(f"encode_sorted_file {n_sorted}",
           lambda: PL.encode_sorted_file(sorted_path, bc[:n_sorted], umi[:n_sorted], device=card))
     want = oracle[:n_sorted].copy()
     want["index"] = np.arange(n_sorted, dtype=np.uint64)
@@ -367,7 +393,7 @@ def main_path(card, n_main: int, n_sorted: int, workdir: Path) -> None:
             "encode_sorted_file is byte-identical to the numpy oracle")
     before = K.decode_records.launches
     with forced_engine("device"):  # decode_file takes no engine
-        hdr, dbc, dumi, didx = timed(f"decode_file {n_sorted}",
+        hdr, dbc, dumi, didx = wall(f"decode_file {n_sorted}",
                                      lambda: PL.decode_file(sorted_path, device=card))
     require(K.decode_records.launches == before + 1, "decode_file launched decode_records once")
     require(hdr.sorted() and (hdr.bc_len, hdr.umi_len) == (BC_LEN, UMI_LEN), "decode_file header")
@@ -378,7 +404,7 @@ def main_path(card, n_main: int, n_sorted: int, workdir: Path) -> None:
     stats_path = str(workdir / "stats.ibu")
     with Writer.from_path(stats_path, Header.new(BC_LEN, UMI_LEN)) as w:
         w.write_batch(records)
-    stats = timed(f"file_stats device {n_main}",
+    stats = wall(f"file_stats device {n_main}",
                   lambda: PL.file_stats(stats_path, engine="device", device=card))
     nat = native.checksum_parallel(stats_path, MmapReader(stats_path).len())
     np_sums = tuple(int(records[f].sum(dtype=np.uint64)) for f in ("barcode", "umi", "index"))
@@ -450,25 +476,25 @@ def histogram_path(card, n: int, workdir: Path) -> None:
         f"largest count {int(want_counts.max())}")
 
     unsorted = write_ibu(workdir / "hist.ibu", records)
-    srt = timed(f"sort_batch {n}", lambda: PL.sort_batch(
+    srt = wall(f"sort_batch {n}", lambda: PL.sort_batch(
         records, bc_len=BC_LEN, umi_len=UMI_LEN, index_bits=32, device=card))
     require(np.array_equal(srt["barcode"], np.sort(bc)), "sort_batch orders the barcodes")
     sorted_path = write_ibu(workdir / "hist_sorted.ibu", srt, sorted_flag=True)
 
-    host = timed(f"barcode_counts host {n}", lambda: PL.barcode_counts(unsorted, engine="host"))
+    host = wall(f"barcode_counts host {n}", lambda: PL.barcode_counts(unsorted, engine="host"))
     require(np.array_equal(host[0], want_keys) and np.array_equal(host[1], want_counts),
             "the host engine equals numpy")
     for label, path in (("unsorted", unsorted), ("sorted", sorted_path)):
-        got = timed(f"stream_file_histogram {label} {n}",
+        got = wall(f"stream_file_histogram {label} {n}",
                     lambda: D.stream_file_histogram(MmapReader(path), device=card))
         require(got == want, f"stream_file_histogram {label} equals numpy")
-        keys, counts = timed(f"barcode_counts device {label} {n}",
+        keys, counts = wall(f"barcode_counts device {label} {n}",
                              lambda: PL.barcode_counts(path, engine="device", device=card))
         require(np.array_equal(keys, host[0]) and np.array_equal(counts, host[1]),
                 f"barcode_counts device {label} equals the host engine")
 
     spill = D.DeviceHistogram(capacity=16384, spill=True, device=card)
-    got = timed(f"DeviceHistogram capacity=16384 spill {n}",
+    got = wall(f"DeviceHistogram capacity=16384 spill {n}",
                 lambda: spill.run(D.record_batches_from_mmap(MmapReader(unsorted))))
     require(got == want and len(spill._spilled) > 0, "the spill path is exact and engaged")
     strict = D.DeviceHistogram(capacity=16384, spill=False, device=card)
@@ -482,22 +508,22 @@ def histogram_path(card, n: int, workdir: Path) -> None:
     gz = write_ibu(workdir / "hist.ibu.gz", head, compression="gzip", level=1)
     gz_want = PL.host_stream_histogram(Reader.from_path(gz).batches())
     require(gz_want == S.barcode_histogram_np(head), "the gzip host engine equals numpy")
-    got = timed(f"DeviceHistogram gzip {len(head)}",
+    got = wall(f"DeviceHistogram gzip {len(head)}",
                 lambda: D.DeviceHistogram(device=card).run(Reader.from_path(gz).batches()))
     require(got == gz_want, "DeviceHistogram over a gzip stream equals the host engine")
-    got = timed(f"sharded_barcode_histogram gzip {len(head)}",
+    got = wall(f"sharded_barcode_histogram gzip {len(head)}",
                 lambda: D.sharded_barcode_histogram(Reader.from_path(gz).batches(), device=card))
     require(got == gz_want, "sharded_barcode_histogram over a gzip stream equals the host engine")
 
     m = min(N_MOLECULES, n)
     mrec = make_records(bc[:m], umi[:m], rng.integers(0, GENES, m, dtype=np.uint64))
     dev = records_to_tensor(mrec, card)
-    keys, mol, n_uniq = timed(f"molecule_counts {m}", lambda: S.molecule_counts(
+    keys, mol, n_uniq = wall(f"molecule_counts {m}", lambda: S.molecule_counts(
         dev, 1 << 16, bc_len=BC_LEN, umi_len=UMI_LEN))
     mol_want = S.molecule_counts_np(mrec)
     require(S.table_dict(keys, mol) == mol_want and int(n_uniq) == len(mol_want),
             "molecule_counts equals numpy")
-    keys, counts, n_pairs = timed(f"pair_molecule_counts {m}", lambda: S.pair_molecule_counts(
+    keys, counts, n_pairs = wall(f"pair_molecule_counts {m}", lambda: S.pair_molecule_counts(
         dev, 1 << 20, bc_len=BC_LEN, umi_len=UMI_LEN, index_bits=32))
     pair_want = S.pair_molecule_counts_np(mrec)
     require(S.table_dict(keys, counts) == pair_want and int(n_pairs) == len(pair_want),
@@ -834,9 +860,9 @@ def host_profile(fn, top: int = 8) -> list[str]:
     prof.enable()
     fn()
     prof.disable()
-    wall = time.perf_counter() - t0
+    dt = time.perf_counter() - t0
     rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: kv[1][2], reverse=True)
-    return [f"wall {wall:.3f} s under cProfile"] + [
+    return [f"wall {dt:.3f} s under cProfile"] + [
         f"{own:.3f} s own, {calls} calls: {name} ({Path(path).name}:{line})"
         for (path, line, name), (_, calls, own, _, _) in rows[:top]]
 
@@ -846,11 +872,12 @@ def count_trio(prefix: str) -> tuple[bytes, ...]:
                  for ext in (".mtx", ".barcodes.txt", ".indices.txt"))
 
 
-def workflow_phase(card, reads: int, workdir: Path) -> None:
+def workflow_phase(card, reads: int, workdir: Path) -> dict:
     """Phase 10: the single-cell workflow after ingest, through the entry
-    points a user calls, on the card."""
+    points a user calls, on the card. Returns the paths of its files, which
+    phase 12 reads."""
     rng = np.random.default_rng(SEED)
-    allow, bc_rows, umi_rows, gene, truth = timed(
+    allow, bc_rows, umi_rows, gene, truth = wall(
         f"workflow generate {reads} reads",
         lambda: WF.make_ground_truth(rng, CELLS, GENE_INDEX, reads, ERROR_RATE))
     log(f"workflow: {reads} reads, {CELLS} cells, {GENE_INDEX} genes, {len(truth)} true "
@@ -858,11 +885,12 @@ def workflow_phase(card, reads: int, workdir: Path) -> None:
     raw, allowfile = str(workdir / "wf_raw.ibu"), str(workdir / "wf_cells.txt")
     fixed, fixed_cpu = str(workdir / "wf_corrected.ibu"), str(workdir / "wf_corrected_cpu.ibu")
     mol, mol_oracle = str(workdir / "wf_molecules.ibu"), str(workdir / "wf_molecules_np.ibu")
+    by_card, by_host = str(workdir / "wf_sorted_card.ibu"), str(workdir / "wf_sorted_native.ibu")
 
     reset_launches()
-    timed(f"workflow ingest encode_sorted_file {reads}", lambda: PL.encode_sorted_file(
+    wall(f"workflow ingest encode_sorted_file {reads}", lambda: PL.encode_sorted_file(
         raw, bc_rows, umi_rows, index=gene, device=card))
-    kstats = timed(f"workflow cells call_cells device {reads}", lambda: PL.call_cells(
+    kstats = wall(f"workflow cells call_cells device {reads}", lambda: PL.call_cells(
         raw, allowfile, method="ordmag", expect=CELLS, engine="device",
         batch_records=WF_BATCH, device=card))
     with open(allowfile) as f:
@@ -870,31 +898,37 @@ def workflow_phase(card, reads: int, workdir: Path) -> None:
     log(f"workflow: cells {kstats}")
     require(np.array_equal(called, allow), "the called allowlist equals the planted one")
 
-    cstats = timed(f"workflow correct_file card {reads}",
+    cstats = wall(f"workflow correct_file card {reads}",
                    lambda: PL.correct_file(raw, fixed, called, device=card))
-    cpu_stats = timed(f"workflow correct_file cpu {reads}",
+    cpu_stats = wall(f"workflow correct_file cpu {reads}",
                       lambda: PL.correct_file(raw, fixed_cpu, called, device="cpu"))
     log(f"workflow: correct {cstats}")
     require(cstats == cpu_stats and Path(fixed).read_bytes() == Path(fixed_cpu).read_bytes(),
             "correct_file on the card equals the CPU run (file and statistics)")
 
-    dstats = timed(f"workflow dedup_file sort on the card {reads}",
+    wall(f"workflow sort_file_device {reads}", lambda: PL.sort_file_device(fixed, by_card, device=card))
+    wall(f"workflow native.sort_file {reads}", lambda: native.sort_file(fixed, by_host))
+    require(filecmp.cmp(by_card, by_host, shallow=False),
+            "sort_file_device is byte-identical to native.sort_file")
+    os.unlink(by_card)
+    os.unlink(by_host)
+    dstats = wall(f"workflow dedup_file native sort {reads}",
                    lambda: PL.dedup_file(fixed, mol, assume_sorted=False, device=card))
-    timed("workflow dedup numpy statement", lambda: dedup_oracle(fixed, mol_oracle))
+    wall("workflow dedup numpy statement", lambda: dedup_oracle(fixed, mol_oracle))
     log(f"workflow: dedup {dstats}")
     require(Path(mol).read_bytes() == Path(mol_oracle).read_bytes(),
             "dedup_file is byte-identical to the numpy statement")
 
     molecules = dstats["molecules"]
-    dev = timed(f"workflow count_matrix device {molecules}", lambda: PL.count_matrix(
+    dev = wall(f"workflow count_matrix device {molecules}", lambda: PL.count_matrix(
         mol, str(workdir / "wf_dev"), batch_records=WF_BATCH, engine="device",
         max_pairs=WF_MAX_PAIRS, device=card))
-    host = timed(f"workflow count_matrix host {molecules}", lambda: PL.count_matrix(
+    host = wall(f"workflow count_matrix host {molecules}", lambda: PL.count_matrix(
         mol, str(workdir / "wf_host"), batch_records=WF_BATCH))
     log(f"workflow: count {dev}")
     require(dev == host and count_trio(str(workdir / "wf_dev")) == count_trio(
         str(workdir / "wf_host")), "count_matrix device is byte-identical to host")
-    entries, missing = timed("workflow truth check", lambda: WF.entries_outside_truth(mol, truth))
+    entries, missing = wall("workflow truth check", lambda: WF.entries_outside_truth(mol, truth))
     planted = set(allow.tolist())
     unexplained = [p for p in missing if not neighbour_in_truth(p, planted, truth)]
     log(f"workflow: {len(missing)} of {entries} entries lie outside the planted truth, "
@@ -919,14 +953,16 @@ def workflow_phase(card, reads: int, workdir: Path) -> None:
     for name in ("count_matrix device", "correct_file"):
         t0 = time.perf_counter()
         ms = device_ms(again[name], [()], iters=1, warm=False)
-        wall = time.perf_counter() - t0
-        note = "not measured" if ms is None else f"{ms:.3f} ms ({ms / (wall * 1e3):.1%} of the wall)"
-        log(f"workflow profile: {name}: device {note}; wall under the profiler {wall:.3f} s")
+        dt = time.perf_counter() - t0
+        note = "not measured" if ms is None else f"{ms:.3f} ms ({ms / (dt * 1e3):.1%} of the wall)"
+        log(f"workflow profile: {name}: device {note}; wall under the profiler {dt:.3f} s")
     for name, fn in again.items():
         for line in host_profile(fn):
             log(f"workflow host profile: {name}: {line}")
     log(f"workflow: {entries - len(missing)} of {entries} entries in the planted truth "
         f"({(entries - len(missing)) / len(truth):.1%} coverage)")
+    return {"raw": raw, "cells": allowfile, "corrected": fixed, "molecules": mol,
+            "counts": str(workdir / "wf_host")}
 
 
 def pinned_memory(reset: bool = False) -> str:
@@ -971,14 +1007,17 @@ def fastq_statement(path: str, records: np.ndarray, start: int = 0) -> None:
 
 def check_fastq_shapes(card, records: np.ndarray) -> None:
     """Both record kernels against their plain versions, exactly, on the
-    file's own records at each batch shape the FASTQ path gives them: the
-    export's full and tail batches (decode) and the ingest's (encode, on the
-    rows those records decode to)."""
+    file's own records at each batch shape the FASTQ path and the CLI's
+    ``decode`` give them: the export's and the ``Reader``'s full and tail
+    batches (decode) and the ingest's (encode, on the rows those records
+    decode to)."""
     n = len(records)
-    shapes = {"export batch": records[:EXPORT_BATCH], "ingest batch": records[:INGEST_BATCH]}
-    for label, batch in (("export tail", EXPORT_BATCH), ("ingest tail", INGEST_BATCH)):
+    shapes = {}
+    for name, batch in (("export", EXPORT_BATCH), ("ingest", INGEST_BATCH),
+                        ("decode Reader", DEFAULT_BUFFER_RECORDS)):
+        shapes[f"{name} batch"] = records[:batch]
         if n % batch:
-            shapes[label] = records[n - n % batch:]
+            shapes[f"{name} tail"] = records[n - n % batch:]
     for label, part in shapes.items():
         words = records_to_tensor(part, card)
         rows = K.decode_records(words, BC_LEN, UMI_LEN)
@@ -997,15 +1036,17 @@ def leftovers(workdir: Path) -> list[str]:
     return sorted(p.name for p in workdir.iterdir() if ".run" in p.name or ".sorted" in p.name)
 
 
-def fastq_phase(card, n: int, n_small: int, workdir: Path) -> dict:
+def fastq_phase(card, n: int, n_small: int, workdir: Path) -> tuple[dict, dict]:
     """Phase 11: FASTQ export and ingest through the entry points a user
     calls, on the card and on the host engine, engine auto-selection, and the
-    file tools. Returns the codec kernels' launches in the device legs."""
+    file tools. Returns the codec kernels' launches in the device legs, and
+    the paths of its files and the file tools' results, which phase 12
+    reads."""
     rng = np.random.default_rng(SEED + 11)
     bc = ACGT[rng.integers(0, 4, (n, BC_LEN), dtype=np.uint8)]
     umi = ACGT[rng.integers(0, 4, (n, UMI_LEN), dtype=np.uint8)]
     src, fq, back = (str(workdir / name) for name in ("src.ibu", "a.fastq", "back.ibu"))
-    timed(f"fastq encode_sorted_file {n}", lambda: PL.encode_sorted_file(src, bc, umi, device=card))
+    wall(f"fastq encode_sorted_file {n}", lambda: PL.encode_sorted_file(src, bc, umi, device=card))
     del bc, umi
     records = np.asarray(MmapReader(src).records)
     export_batches, ingest_batches = -(-n // EXPORT_BATCH), -(-n // INGEST_BATCH)
@@ -1015,8 +1056,8 @@ def fastq_phase(card, n: int, n_small: int, workdir: Path) -> dict:
     # the device legs, with the launches counted
     os.environ["IBU_AUTO_ENGINE"] = "device"
     reset_launches()
-    got, walls["export device"] = wall(f"fastq export_fastq device {n}",
-                                       lambda: PL.export_fastq(src, fq, device=card))
+    got = wall(f"fastq export_fastq device {n}", lambda: PL.export_fastq(src, fq, device=card),
+               walls, "export device")
     launches = read_launches()
     require(got == n, "export_fastq returns the read count")
     require(launches["decode_records"] == export_batches and launches["encode_records"] == 0,
@@ -1027,8 +1068,8 @@ def fastq_phase(card, n: int, n_small: int, workdir: Path) -> dict:
     rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     log(f"fastq: pinned host memory before the ingest (peak reset): {pinned_memory(reset=True)}")
     reset_launches()
-    got, walls["ingest device"] = wall(f"fastq ingest_fastq device {n}",
-                                       lambda: PL.ingest_fastq(fq, back, BC_LEN, UMI_LEN, device=card))
+    got = wall(f"fastq ingest_fastq device {n}",
+               lambda: PL.ingest_fastq(fq, back, BC_LEN, UMI_LEN, device=card), walls, "ingest device")
     ingest_launches = read_launches()
     launches["encode_records"] = ingest_launches["encode_records"]
     flow = ("out of core: native sort of 32 MB chunks, spilled runs, one merge"
@@ -1055,12 +1096,12 @@ def fastq_phase(card, n: int, n_small: int, workdir: Path) -> dict:
     os.environ["IBU_AUTO_ENGINE"] = "host"
     fq_host, back_host = str(workdir / "a_host.fastq"), str(workdir / "back_host.ibu")
     reset_launches()
-    _, walls["export host"] = wall(f"fastq export_fastq host {n}",
-                                   lambda: PL.export_fastq(src, fq_host, device=card))
+    wall(f"fastq export_fastq host {n}", lambda: PL.export_fastq(src, fq_host, device=card),
+         walls, "export host")
     require(filecmp.cmp(fq, fq_host, shallow=False), "the host engine exports the same FASTQ")
     os.unlink(fq_host)
-    _, walls["ingest host"] = wall(f"fastq ingest_fastq host {n}",
-                                   lambda: PL.ingest_fastq(fq, back_host, BC_LEN, UMI_LEN, device=card))
+    wall(f"fastq ingest_fastq host {n}",
+         lambda: PL.ingest_fastq(fq, back_host, BC_LEN, UMI_LEN, device=card), walls, "ingest host")
     require(filecmp.cmp(back, back_host, shallow=False), "the host engine ingests the same file")
     require(all(v == 0 for v in read_launches().values()), "the host engine launches no kernel")
     os.unlink(back_host)
@@ -1084,7 +1125,7 @@ def fastq_phase(card, n: int, n_small: int, workdir: Path) -> dict:
     small = str(workdir / "small.ibu")
     write_ibu(Path(small), records[:n_small], sorted_flag=True)
     fq_gz = str(workdir / "small.fastq.gz")
-    timed(f"fastq export_fastq gzip {n_small}", lambda: PL.export_fastq(small, fq_gz, device=card))
+    wall(f"fastq export_fastq gzip {n_small}", lambda: PL.export_fastq(small, fq_gz, device=card))
     want = records[:n_small].copy()
     want["index"] = np.arange(n_small, dtype=np.uint64)
     for codec_name, suffix in (("gzip", ".gz"), ("zstd", ".zst")):
@@ -1093,7 +1134,7 @@ def fastq_phase(card, n: int, n_small: int, workdir: Path) -> dict:
                 "into place ran for gzip only")
             continue
         packed = str(workdir / f"small.ibu{suffix}")
-        got = timed(f"fastq ingest_fastq gzip to {codec_name} {n_small}",
+        got = wall(f"fastq ingest_fastq gzip to {codec_name} {n_small}",
                     lambda: PL.ingest_fastq(fq_gz, packed, BC_LEN, UMI_LEN, device=card))
         reader = Reader.from_path(packed)
         round_trip = np.concatenate(list(reader.batches()))
@@ -1107,7 +1148,7 @@ def fastq_phase(card, n: int, n_small: int, workdir: Path) -> dict:
     os.unlink(fq_gz)
     del want
 
-    file_tools(src, records, n_small, workdir)
+    tools = file_tools(src, records, n_small, workdir)
 
     # device time of one more run of each leg
     os.environ["IBU_AUTO_ENGINE"] = "device"
@@ -1122,44 +1163,42 @@ def fastq_phase(card, n: int, n_small: int, workdir: Path) -> dict:
     for name, fn in again.items():
         for line in host_profile(fn):
             log(f"fastq host profile: {name}: {line}")
-    return launches
+    return launches, {"src": src, "fastq": fq, "back": back, **tools}
 
 
-def file_tools(src: str, records: np.ndarray, n_small: int, workdir: Path) -> None:
-    """The host file tools on the 10M-record sorted file."""
+def file_tools(src: str, records: np.ndarray, n_small: int, workdir: Path) -> dict:
+    """The host file tools on the 10M-record sorted file. Their outputs stay
+    for phase 12; returns their paths and results."""
     n = len(records)
     rng = np.random.default_rng(SEED + 12)
-    report = timed("tools check_file", lambda: PL.check_file(src))
+    report = wall("tools check_file", lambda: PL.check_file(src))
     require(report["ok"] and report["records"] == n and report["first_order_violation"] is None
             and not report["errors"] and not report["warnings"], f"check_file passes: {report}")
 
     allow = records["barcode"][rng.choice(n, FILTER_BARCODES, replace=False)]
     kept = str(workdir / "kept.ibu")
-    stats = timed(f"tools filter_file {FILTER_BARCODES} barcodes",
+    stats = wall(f"tools filter_file {FILTER_BARCODES} barcodes",
                   lambda: PL.filter_file(src, kept, allow))
     mask = np.isin(records["barcode"], allow)
     got = np.asarray(MmapReader(kept).records)
     require(stats == {"records": n, "kept": int(mask.sum()), "allowlist": len(np.unique(allow))}
             and np.array_equal(got, records[mask]) and MmapReader(kept).header().sorted(),
             f"filter_file equals the numpy mask: {stats}")
-    found = timed("tools lookup_barcodes", lambda: PL.lookup_barcodes(src, allow))
+    found = wall("tools lookup_barcodes", lambda: PL.lookup_barcodes(src, allow))
     require(np.array_equal(found, got), "lookup_barcodes gives the filter's records")
-    few = timed("tools lookup_barcodes 8 queries", lambda: PL.lookup_barcodes(src, allow[:8]))
+    few = wall("tools lookup_barcodes 8 queries", lambda: PL.lookup_barcodes(src, allow[:8]))
     require(np.array_equal(few, records[np.isin(records["barcode"], allow[:8])]),
             "lookup_barcodes by bisection equals the numpy mask")
-    os.unlink(kept)
 
-    shards = timed("tools split_file 4", lambda: PL.split_file(src, str(workdir / "shard{}.ibu"), 4))
+    shards = wall("tools split_file 4", lambda: PL.split_file(src, str(workdir / "shard{}.ibu"), 4))
     cat = str(workdir / "cat.ibu")
-    stats = timed("tools concat_files", lambda: PL.concat_files(shards, cat))
+    stats = wall("tools concat_files", lambda: PL.concat_files(shards, cat))
     require(stats == {"records": n, "files": 4, "sorted": True}
             and filecmp.cmp(cat, src, shallow=False),
             f"split_file then concat_files gives back the file, sorted flag set: {stats}")
-    for path in shards + [cat]:
-        os.unlink(path)
 
     sub = str(workdir / "sub.ibu")
-    stats = timed(f"tools subsample_file {n_small}",
+    stats = wall(f"tools subsample_file {n_small}",
                   lambda: PL.subsample_file(src, sub, n=n_small, seed=0))
     got = np.asarray(MmapReader(sub).records)
     # the source's indices are a permutation of arange(n): where each sits
@@ -1170,34 +1209,239 @@ def file_tools(src: str, records: np.ndarray, n_small: int, workdir: Path) -> No
             and MmapReader(sub).header().sorted()
             and bool((np.diff(at) > 0).all()) and np.array_equal(records[at], got),
             f"subsample_file gives a sorted subset of exactly {n_small}: {stats}")
-    os.unlink(sub)
 
     whole, tail = n * 7 // 10 + 123, 11  # a cut 11 bytes into a record
     torn, fixed = str(workdir / "torn.ibu"), str(workdir / "fixed.ibu")
     with open(src, "rb") as f, open(torn, "wb") as out:
         out.write(f.read(32 + 24 * whole + tail))
-    stats = timed("tools repair_file", lambda: PL.repair_file(torn, fixed))
+    stats = wall("tools repair_file", lambda: PL.repair_file(torn, fixed))
     require(stats["records"] == whole and stats["dropped_bytes"] == tail and stats["sorted"]
             and np.array_equal(np.asarray(MmapReader(fixed).records), records[:whole])
             and MmapReader(fixed).header().sorted(),
             f"repair_file keeps the whole records before the cut: {stats}")
-    report = PL.check_file(torn)
-    require(not report["ok"] and report["records"] == whole, "check_file reports the torn tail")
-    os.unlink(torn)
-    os.unlink(fixed)
+    torn_report = PL.check_file(torn)
+    require(not torn_report["ok"] and torn_report["records"] == whole,
+            "check_file reports the torn tail")
 
     part = records[:n_small]
     bc_rows, umi_rows, idx = PL.decode_batch(part, BC_LEN, UMI_LEN, engine="host")
     mixed = idx.copy()
     mixed[::3] *= np.uint64(7919)  # several digit counts in one block
     for label, index in (("one width", idx + np.uint64(10**6)), ("mixed widths", mixed)):
-        text = timed(f"tools decode_tsv_block {label} {n_small}",
+        text = wall(f"tools decode_tsv_block {label} {n_small}",
                      lambda: PL.decode_tsv_block(bc_rows, umi_rows, index))
         lines = text.split(b"\n")
         require(len(lines) == n_small + 1 and lines[-1] == b"", "one TSV line per record")
         for k in rng.choice(n_small, 10_000, replace=False).tolist():
             want = b"%s\t%s\t%d" % (bytes(bc_rows[k]), bytes(umi_rows[k]), int(index[k]))
             require(lines[k] == want, f"TSV line {k} is {want!r}, got {lines[k]!r}")
+    return {"check": report, "allow": allow, "kept": kept, "few": few, "shards": shards,
+            "cat": cat, "sub": sub, "torn": torn, "fixed": fixed}
+
+
+def cli_env(**extra) -> dict:
+    """The environment a user's shell gives the command: this one, without
+    ``IBU_AUTO_ENGINE``."""
+    return {**{k: v for k, v in os.environ.items() if k != "IBU_AUTO_ENGINE"}, **extra}
+
+
+def run_cli(args: list[str], walls: dict, key: str, stdout=None, env=None):
+    """``python -m ibu_tpu_torch *args`` in a new process from the root of
+    the checkout, as a user types it; its wall printed and kept under
+    ``key``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ibu_tpu_torch", *args], cwd=ROOT,
+                          env=cli_env() if env is None else env,
+                          stdout=subprocess.PIPE if stdout is None else stdout,
+                          stderr=subprocess.PIPE, timeout=600)
+    walls[key] = time.perf_counter() - t0
+    log(f"wall: cli {key}: {walls[key]:.3f} s (exit {proc.returncode})")
+    for line in proc.stderr.decode().splitlines():
+        log(f"cli {key}: stderr: {line}")
+    return proc
+
+
+def cli_ok(proc, key: str, stdout: str | None = None) -> None:
+    require(proc.returncode == 0, f"cli {key} exits 0")
+    if stdout is not None:
+        got = proc.stdout.decode()
+        require(got == stdout, f"cli {key} prints {stdout!r}, got {got[:500]!r}")
+
+
+def same_file(got: str, want: str, what: str) -> None:
+    require(filecmp.cmp(got, want, shallow=False), f"{what}: {got} equals {want} byte for byte")
+    os.unlink(got)
+
+
+def tsv_lines(records: np.ndarray) -> bytes:
+    return PL.decode_tsv_block(*PL.decode_batch(records, BC_LEN, UMI_LEN, engine="host"))
+
+
+def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
+    """Phase 12: the command line, ``python -m ibu_tpu_torch``, on the files
+    phases 10 and 11 leave, each command's output held against the same
+    functions called in-process. Returns the codec kernels' launches under
+    the CLI's codec commands."""
+    t_phase = time.perf_counter()
+    walls: dict = {}
+    raw, src = wf["raw"], fq["src"]
+    records = np.asarray(MmapReader(src).records)
+    n = len(records)
+
+    def out(name: str) -> str:
+        return str(workdir / name)
+
+    # no card: a device command refuses before it writes anything. It runs
+    # on a thread beside the rest of the phase (it only sniffs the file)
+    pool = ThreadPoolExecutor(1)
+    no_card = pool.submit(run_cli, ["stats", src, "--engine", "device"], walls,
+                          "stats without a card", env=cli_env(CUDA_VISIBLE_DEVICES=""))
+
+    # the startup floor: import, argument parsing and one header read
+    tiny = write_ibu(workdir / "tiny.ibu", make_records([1], [2], [3]))
+    proc = run_cli(["info", tiny], walls, "info 1 record")
+    cli_ok(proc, "info 1 record")
+
+    # the workflow commands on phase 10's raw 10M-read file
+    path = out("sorted.ibu")
+    cli_ok(run_cli(["sort", raw, path], walls, "sort native"), "sort", f"sorted {raw} -> {path}\n")
+    same_file(path, raw, "sort of the sorted raw file")  # native.sort_file gives it back
+    reader = MmapReader(raw)
+    h = reader.header()
+    info = {"path": raw, "magic": "IBU!", "version": h.version, "bc_len": h.bc_len,
+            "umi_len": h.umi_len, "sorted": h.sorted(), "flags": h.flags,
+            "records": reader.len(), "bytes": 32 + 24 * reader.len()}
+    cli_ok(run_cli(["info", raw], walls, "info"), "info", json.dumps(info) + "\n")
+    stats = PL.file_stats(raw, engine="native")
+    stats.pop("engine")
+    cli_ok(run_cli(["stats", raw], walls, "stats"), "stats", json.dumps(stats) + "\n")
+    keys, counts = PL.barcode_counts(raw, engine="host", batch_records=WF_BATCH)
+    order = np.lexsort((keys, -counts))[:20]
+    top = "".join(f"{seq}\t{int(c)}\n"
+                  for seq, c in zip(C.decode_seqs(keys[order], BC_LEN), counts[order]))
+    proc = run_cli(["histogram", raw, "--top", "20"], walls, "histogram")
+    cli_ok(proc, "histogram", top)
+    require(proc.stderr.decode().endswith(
+        f"# {len(keys)} unique barcodes, {int(counts.sum())} records\n"), "histogram's totals")
+    path = out("cells.txt")
+    cli_ok(run_cli(["cells", raw, "-o", path, "--engine", "device", "--method", "ordmag",
+                    "--expect", str(CELLS)], walls, "cells device"), "cells")
+    same_file(path, wf["cells"], "cells --engine device")
+    path = out("corrected.ibu")
+    cli_ok(run_cli(["correct", raw, path, "--barcodes", wf["cells"]], walls, "correct"), "correct")
+    same_file(path, wf["corrected"], "correct")
+    path = out("molecules.ibu")
+    cli_ok(run_cli(["dedup", wf["corrected"], path, "--assume-sorted", "no"], walls,
+                   "dedup native sort"), "dedup")
+    same_file(path, wf["molecules"], "dedup --assume-sorted no")
+    cli_ok(run_cli(["count", wf["molecules"], out("counts")], walls, "count host"), "count")
+    require(count_trio(out("counts")) == count_trio(wf["counts"]), "count equals count_matrix")
+    proc = run_cli(["count", wf["molecules"], out("counts_dev"), "--engine", "device"], walls,
+                   "count device")
+    err = proc.stderr.decode()
+    if proc.returncode == 0:
+        require(count_trio(out("counts_dev")) == count_trio(wf["counts"]),
+                "count --engine device equals the host engine")
+        log("cli: count --engine device ran within max_pairs=1048576")
+    else:
+        require(proc.returncode == 1 and err.startswith("error: a batch produced ") and err.endswith(
+            " distinct (barcode, index) pairs, over the max_pairs=1048576 device capacity; raise "
+            "it or shrink batch_records\n") and not proc.stdout,
+            f"count --engine device refuses with the reference's text: {err!r}")
+        log("cli: count --engine device refused past max_pairs=1048576, exit 1, as the reference")
+
+    # the FASTQ commands and the file tools on phase 11's sorted 10M-record file
+    fastq, back = out("a.fastq"), out("back.ibu")
+    cli_ok(run_cli(["export-fastq", src, fastq], walls, "export-fastq"), "export-fastq")
+    require(filecmp.cmp(fastq, fq["fastq"], shallow=False), "export-fastq equals export_fastq")
+    cli_ok(run_cli(["ingest-fastq", fastq, back], walls, "ingest-fastq"), "ingest-fastq")
+    os.unlink(fastq)
+    same_file(back, fq["back"], "ingest-fastq")
+    tsv = out("decode.tsv")
+    with open(tsv, "wb") as f:
+        cli_ok(run_cli(["decode", src], walls, "decode", stdout=f), "decode")
+    m = N_FASTQ_GZIP
+    head, tail = tsv_lines(records[:m]), tsv_lines(records[n - m:])
+    with open(tsv, "rb") as f:
+        require(f.read(len(head)) == head, f"decode's first {m} lines are decode_tsv_block's")
+        f.seek(-len(tail), os.SEEK_END)
+        require(f.read() == tail, f"decode's last {m} lines are decode_tsv_block's")
+    cli_ok(run_cli(["check", src, "--json"], walls, "check"), "check",
+           json.dumps(fq["check"]) + "\n")
+    allow = out("allow.txt")
+    Path(allow).write_text("".join(f"{int(b)}\n" for b in fq["allow"]))
+    path = out("kept.ibu")
+    cli_ok(run_cli(["filter", src, path, "--barcodes", allow], walls, "filter"), "filter")
+    same_file(path, fq["kept"], "filter")
+    few = fq["few"]
+    lines = "".join(f"{b}\t{u}\t{int(i)}\n" for b, u, i in zip(
+        C.decode_seqs(few["barcode"], BC_LEN), C.decode_seqs(few["umi"], UMI_LEN), few["index"]))
+    cli_ok(run_cli(["lookup", src, *(str(int(b)) for b in fq["allow"][:8])], walls, "lookup"),
+           "lookup", lines)
+    cli_ok(run_cli(["split", src, out("shard{}.ibu"), "4"], walls, "split"), "split")
+    for k, shard in enumerate(fq["shards"]):
+        same_file(out(f"shard{k}.ibu"), shard, f"split shard {k}")
+    path = out("merged.ibu")
+    cli_ok(run_cli(["merge", path, *fq["shards"]], walls, "merge"), "merge")
+    same_file(path, src, "merge of the sorted shards")
+    path = out("cat.ibu")
+    cli_ok(run_cli(["concat", path, *fq["shards"]], walls, "concat"), "concat")
+    same_file(path, fq["cat"], "concat")
+    path = out("sub.ibu")
+    cli_ok(run_cli(["subsample", src, path, "--n", str(N_FASTQ_GZIP), "--seed", "0"], walls,
+                   "subsample"), "subsample")
+    same_file(path, fq["sub"], "subsample")
+    path = out("fixed.ibu")
+    cli_ok(run_cli(["repair", fq["torn"], path], walls, "repair"), "repair")
+    same_file(path, fq["fixed"], "repair")
+
+    # the codec commands in this process, with the kernels' launches counted
+    from ibu_tpu_torch.__main__ import main as cli_main
+
+    def decode_into(path: str) -> int:
+        with open(path, "w") as f, contextlib.redirect_stdout(f):
+            return cli_main(["decode", src])
+
+    cli_launches = {}
+    with forced_engine("device"):
+        reset_launches()
+        rc = wall(f"cli in process decode {n}", lambda: decode_into(out("decode_in_process.tsv")))
+        require(rc == 0, "decode in process exits 0")
+        cli_launches["decode"] = read_launches()
+        same_file(out("decode_in_process.tsv"), tsv, "decode in process and in a new process")
+        os.unlink(tsv)
+        reset_launches()
+        rc = wall(f"cli in process export-fastq {n}", lambda: cli_main(["export-fastq", src, fastq]))
+        require(rc == 0, "export-fastq in process exits 0")
+        cli_launches["export-fastq"] = read_launches()
+        reset_launches()
+        rc = wall(f"cli in process ingest-fastq {n}", lambda: cli_main(["ingest-fastq", fastq, back]))
+        require(rc == 0, "ingest-fastq in process exits 0")
+        cli_launches["ingest-fastq"] = read_launches()
+    log(f"launches under the CLI's codec commands: {cli_launches}")
+    reader_batches = -(-n // DEFAULT_BUFFER_RECORDS)
+    require(cli_launches["decode"]["decode_records"] == reader_batches
+            and cli_launches["decode"]["encode_records"] == 0,
+            f"decode launched decode_records once per Reader batch ({reader_batches})")
+    require(cli_launches["export-fastq"]["decode_records"] == -(-n // EXPORT_BATCH)
+            and cli_launches["export-fastq"]["encode_records"] == 0,
+            "export-fastq launched decode_records once per 2^20-record batch")
+    require(cli_launches["ingest-fastq"]["encode_records"] == -(-n // INGEST_BATCH)
+            and cli_launches["ingest-fastq"]["decode_records"] == 0,
+            "ingest-fastq launched encode_records once per 200,000-read batch")
+    same_file(fastq, fq["fastq"], "export-fastq in process")
+    same_file(back, fq["back"], "ingest-fastq in process")
+
+    proc = no_card.result()
+    pool.shutdown()
+    err = proc.stderr.decode()
+    require(proc.returncode == 2 and not proc.stdout and err.count("\n") == 1
+            and "--device cpu" in err, f"without a card stats --engine device exits 2: {err!r}")
+
+    log("cli: walls (one run each, a new process each): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()))
+    log(f"cli: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return cli_launches
 
 
 def main() -> int:
@@ -1246,22 +1490,27 @@ def main() -> int:
     kernels = time_kernels(card, N_MAIN, launches)
     kernels += labs_phase(card, N_MAIN)
     kernels += sort_lab_phase(card, N_SORT_LAB)
-    workdir.mkdir(parents=True, exist_ok=True)
+    # phases 10 and 11 keep their files for phase 12, which reads them
+    dirs = {name: workdir / name for name in ("workflow", "fastq", "cli")}
     try:
-        workflow_phase(card, N_READS, workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    log(f"elapsed before the FASTQ phase: {time.perf_counter() - t_start:.1f} s")
-    workdir.mkdir(parents=True, exist_ok=True)
-    try:
-        fastq_launches = fastq_phase(card, N_FASTQ, N_FASTQ_GZIP, workdir)
+        for d in dirs.values():
+            d.mkdir(parents=True, exist_ok=True)
+        wf_files = workflow_phase(card, N_READS, dirs["workflow"])
+        log(f"elapsed before the FASTQ phase: {time.perf_counter() - t_start:.1f} s")
+        fastq_launches, fq_files = fastq_phase(card, N_FASTQ, N_FASTQ_GZIP, dirs["fastq"])
+        os.environ.pop("IBU_AUTO_ENGINE", None)
+        log(f"launches on the FASTQ path (device legs): {fastq_launches}")
+        log(f"elapsed before the CLI phase: {time.perf_counter() - t_start:.1f} s")
+        cli_launches = cli_phase(card, wf_files, fq_files, dirs["cli"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         os.environ.pop("IBU_AUTO_ENGINE", None)
-    log(f"launches on the FASTQ path (device legs): {fastq_launches}")
     for entry in kernels:
-        if entry["name"] in ("encode_records", "decode_records"):
-            entry["fastq_launches"] = fastq_launches[entry["name"]]
+        name = entry["name"]
+        if name in ("encode_records", "decode_records"):
+            entry["fastq_launches"] = fastq_launches[name]
+            entry["cli_launches"] = {cmd: got[name] for cmd, got in cli_launches.items()
+                                     if got[name]}
     log(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))

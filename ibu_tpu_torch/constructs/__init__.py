@@ -13,6 +13,7 @@ from ibu_tpu_torch.constructs.record import (
     make_records,
     records_from_bytes,
     records_to_bytes,
+    sort_records,
 )
 
 __all__ = [
@@ -27,4 +28,5 @@ __all__ = [
     "make_records",
     "records_from_bytes",
     "records_to_bytes",
+    "sort_records",
 ]

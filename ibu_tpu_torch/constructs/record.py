@@ -104,3 +104,10 @@ def records_from_bytes(data: bytes | bytearray | memoryview) -> np.ndarray:
             f"byte length {len(buf)} is not a multiple of RECORD_SIZE={RECORD_SIZE}"
         )
     return np.frombuffer(buf, dtype=RECORD_DTYPE).copy()
+
+
+def sort_records(records: np.ndarray) -> np.ndarray:
+    """Sort by (barcode, umi, index) (ref ``record.rs:29-32``): ``np.sort``
+    on the structured dtype compares the fields in declaration order, which
+    is the reference's derived ``Ord``."""
+    return np.sort(records, order=("barcode", "umi", "index"))

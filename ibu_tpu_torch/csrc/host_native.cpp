@@ -1,13 +1,15 @@
-// Host runtime of ibu_tpu_torch: the threaded field-sum engine, the host
-// 2-bit codec, the FASTQ chunk parser, the record sort, the out-of-core
-// external merge sort and the key-interval merges of sorted runs, with a
-// plain C interface loaded by ctypes (ibu_tpu_torch/native.py).
+// Host runtime of ibu_tpu_torch: the bulk and threaded file I/O, the
+// threaded field-sum engine, the host 2-bit codec, the FASTQ chunk parser,
+// the record sort, the out-of-core external merge sort and the key-interval
+// merges of sorted runs, with a plain C interface loaded by ctypes
+// (ibu_tpu_torch/native.py).
 //
 // A copy of the functions of ibu_tpu/native/ibu_native.cpp that the port
-// uses: ibu_checksum_parallel, ibu_pack_2bit / ibu_unpack_2bit with their
-// threaded _mt forms, ibu_fastq_gather, ibu_sort_records, ibu_sort_file,
-// ibu_run_interval, ibu_merge_runs_interval with its _mt form, and
-// ibu_merge_files. Built with g++ (not nvcc) into its own library, so it
+// uses: ibu_write_file, ibu_read_file, ibu_pread_parallel,
+// ibu_pwrite_parallel, ibu_file_size, ibu_checksum_parallel, ibu_pack_2bit /
+// ibu_unpack_2bit with their threaded _mt forms, ibu_fastq_gather,
+// ibu_sort_records, ibu_sort_file, ibu_run_interval,
+// ibu_merge_runs_interval with its _mt form, and ibu_merge_files. Built with g++ (not nvcc) into its own library, so it
 // builds and runs where there is no CUDA toolkit. Every function returns 0
 // on success or a negative errno-style code.
 
@@ -173,12 +175,19 @@ int ibu_unpack_2bit_mt(const uint64_t* words, uint64_t n, uint32_t L,
   return -failure.load();
 }
 
-// Write nbytes to a new file at path in large writes (the run spill of
-// ibu_sort_file).
-static int write_whole_file(const char* path, const uint8_t* data,
-                            uint64_t nbytes) {
+// ---------------------------------------------------------------------------
+// bulk file I/O
+// ---------------------------------------------------------------------------
+
+// Write header (32 bytes, may be null) + payload to path in large writes.
+int ibu_write_file(const char* path, const uint8_t* header32,
+                   const uint8_t* data, uint64_t nbytes) {
   int fd = ::open(path, O_WRONLY | O_CREAT | O_TRUNC, 0644);
   if (fd < 0) return -errno;
+  if (header32 != nullptr) {
+    ssize_t w = ::write(fd, header32, 32);
+    if (w != 32) { int e = errno; ::close(fd); return -(e ? e : EIO); }
+  }
   uint64_t off = 0;
   while (off < nbytes) {
     size_t chunk = std::min<uint64_t>(nbytes - off, 1ull << 30);
@@ -187,6 +196,109 @@ static int write_whole_file(const char* path, const uint8_t* data,
     off += static_cast<uint64_t>(w);
   }
   if (::close(fd) != 0) return -errno;
+  return 0;
+}
+
+// Read nbytes at byte offset into out (pread loop).
+int ibu_read_file(const char* path, uint8_t* out, uint64_t nbytes,
+                  uint64_t offset) {
+  int fd = ::open(path, O_RDONLY);
+  if (fd < 0) return -errno;
+  uint64_t got = 0;
+  while (got < nbytes) {
+    ssize_t r = ::pread(fd, out + got, nbytes - got,
+                        static_cast<off_t>(offset + got));
+    if (r < 0) { int e = errno; ::close(fd); return -e; }
+    if (r == 0) { ::close(fd); return -EIO; }  // short file
+    got += static_cast<uint64_t>(r);
+  }
+  ::close(fd);
+  return 0;
+}
+
+// Threaded pread over disjoint ranges of an already-open fd. Page-cache
+// reads are memcpy-bound, so splitting across cores scales them (the
+// single-threaded read() loop above is the portability fallback). The fd's
+// file offset is NOT used or modified (pread only).
+int ibu_pread_parallel(int fd, uint8_t* out, uint64_t nbytes,
+                       uint64_t offset, int nthreads) {
+  if (nthreads <= 0) nthreads = std::thread::hardware_concurrency();
+  nthreads = std::max(1, std::min(nthreads, 64));
+  // below ~4 MB thread spawn overhead beats the memcpy win
+  if (nbytes < (4ull << 20) || nthreads == 1) {
+    uint64_t got = 0;
+    while (got < nbytes) {
+      ssize_t r = ::pread(fd, out + got, nbytes - got,
+                          static_cast<off_t>(offset + got));
+      if (r < 0) return -errno;
+      if (r == 0) return -EIO;
+      got += static_cast<uint64_t>(r);
+    }
+    return 0;
+  }
+  uint64_t per = nbytes / nthreads;
+  std::atomic<int> failure(0);
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nthreads; ++t) {
+    uint64_t start = static_cast<uint64_t>(t) * per;
+    uint64_t end = (t == nthreads - 1) ? nbytes : start + per;
+    threads.emplace_back([fd, out, offset, start, end, &failure]() {
+      uint64_t got = start;
+      while (got < end) {
+        ssize_t r = ::pread(fd, out + got, end - got,
+                            static_cast<off_t>(offset + got));
+        if (r < 0) { failure.store(errno); return; }
+        if (r == 0) { failure.store(EIO); return; }
+        got += static_cast<uint64_t>(r);
+      }
+    });
+  }
+  for (auto& th : threads) th.join();
+  return -failure.load();
+}
+
+// Threaded pwrite over disjoint ranges of an already-open fd. pwrite
+// beyond EOF extends the file; disjoint ranges are safe concurrently.
+// The fd's file offset is NOT used or modified (pwrite only).
+int ibu_pwrite_parallel(int fd, const uint8_t* data, uint64_t nbytes,
+                        uint64_t offset, int nthreads) {
+  if (nthreads <= 0) nthreads = std::thread::hardware_concurrency();
+  nthreads = std::max(1, std::min(nthreads, 64));
+  if (nbytes < (4ull << 20) || nthreads == 1) {
+    uint64_t put = 0;
+    while (put < nbytes) {
+      ssize_t w = ::pwrite(fd, data + put, nbytes - put,
+                           static_cast<off_t>(offset + put));
+      if (w < 0) return -errno;
+      put += static_cast<uint64_t>(w);
+    }
+    return 0;
+  }
+  uint64_t per = nbytes / nthreads;
+  std::atomic<int> failure(0);
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nthreads; ++t) {
+    uint64_t start = static_cast<uint64_t>(t) * per;
+    uint64_t end = (t == nthreads - 1) ? nbytes : start + per;
+    threads.emplace_back([fd, data, offset, start, end, &failure]() {
+      uint64_t put = start;
+      while (put < end) {
+        ssize_t w = ::pwrite(fd, data + put, end - put,
+                             static_cast<off_t>(offset + put));
+        if (w < 0) { failure.store(errno); return; }
+        put += static_cast<uint64_t>(w);
+      }
+    });
+  }
+  for (auto& th : threads) th.join();
+  return -failure.load();
+}
+
+// File size query (returns <0 on error, else size via out).
+int ibu_file_size(const char* path, uint64_t* out) {
+  struct stat st;
+  if (::stat(path, &st) != 0) return -errno;
+  *out = static_cast<uint64_t>(st.st_size);
   return 0;
 }
 
@@ -367,8 +479,8 @@ int ibu_sort_file(const char* in_path, const char* out_path,
           }
           std::sort(chunk.begin(), chunk.end(), record_less);
           run_paths[r] = std::string(out_path) + ".run" + std::to_string(r);
-          int rc = write_whole_file(
-              run_paths[r].c_str(),
+          int rc = ibu_write_file(
+              run_paths[r].c_str(), nullptr,
               reinterpret_cast<const uint8_t*>(chunk.data()),
               count * sizeof(IbuRecord));
           if (rc != 0) { failure.store(-rc); return; }

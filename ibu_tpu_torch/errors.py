@@ -3,7 +3,8 @@
 A copy of :mod:`ibu_tpu.errors`, so that the port runs without the JAX
 package beside it: one exception class per variant of the reference's error
 enum (``src/error.rs:56-128``), with the same payload fields and, character
-for character, the same messages. All errors derive from :class:`IbuError`.
+for character, the same messages. All errors derive from :class:`IbuError`,
+except the port's own :class:`NoCardError`.
 """
 
 from __future__ import annotations
@@ -105,3 +106,24 @@ class ProcessError(IbuError):
     def __init__(self, inner: BaseException | str):
         self.inner = inner
         super().__init__(f"Processing error: {inner}")
+
+
+def into_ibu_error(err: BaseException) -> IbuError:
+    """Any exception as an :class:`IbuError`, the reference's blanket
+    ``IntoIbuError`` (``error.rs:161-177``): an IBU error passes through,
+    anything else is wrapped in :class:`ProcessError`."""
+    if isinstance(err, IbuError):
+        return err
+    return ProcessError(err)
+
+
+#: what a command prints after its name when it needs a card and has none
+NO_CARD_HINT = ("no CUDA card (torch.cuda.is_available() is false); "
+                "pass --device cpu to run the plain torch versions on the CPU")
+
+
+class NoCardError(RuntimeError):
+    """A CUDA device was asked for (``device=None``, the default, included)
+    and no card is available (raised by
+    :func:`ibu_tpu_torch.utils.device.resolve_device`). A command reports it
+    as one line, :data:`NO_CARD_HINT`, and exits 2."""

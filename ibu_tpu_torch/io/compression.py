@@ -52,6 +52,13 @@ class _PeekableStream(io.RawIOBase):
     def readable(self) -> bool:
         return True
 
+    @property
+    def name(self):
+        """The wrapped stream's file name, where it has one: how
+        :meth:`ibu_tpu_torch.io.reader.Reader.clone` finds the disk file
+        beneath the sniffing wrapper."""
+        return getattr(self._inner, "name", None)
+
     def readinto(self, b) -> int:
         if self._prefix:
             n = min(len(b), len(self._prefix))
@@ -94,6 +101,17 @@ class _ChainClosing:
     def __init__(self, stream, *also_close):
         self._stream = stream
         self._also_close = also_close
+
+    @property
+    def name(self):
+        """The file name beneath the chain, where it has one: how
+        :meth:`ibu_tpu_torch.io.reader.Reader.clone` reopens a compressed
+        reader."""
+        for s in self._also_close:
+            n = getattr(s, "name", None)
+            if n is not None:
+                return n
+        return getattr(self._stream, "name", None)
 
     def read(self, n: int = -1) -> bytes:
         return self._stream.read(n)
@@ -245,6 +263,30 @@ def open_decompressed(path: str) -> BinaryIO:
     except OSError as e:
         raise IbuIoError(e) from e
     return wrap_decompress(raw)
+
+
+def reopen_decompressed_at(path: str, pos: int) -> BinaryIO:
+    """A fresh decompression chain over ``path``, read forward to ``pos``
+    decompressed bytes: how a compressed reader clones, since a compressed
+    stream has no map from decompressed positions to file offsets (so the
+    clone costs O(pos)). A stream that ends before ``pos`` (the file changed
+    since it was opened) raises :class:`CompressionError`."""
+    s = open_decompressed(path)
+    try:
+        skipped = 0
+        while skipped < pos:
+            chunk = s.read(min(1 << 20, pos - skipped))
+            if not chunk:
+                raise CompressionError(
+                    f"{path}: stream ended at {skipped} decompressed bytes "
+                    f"while cloning a reader positioned at {pos} (file "
+                    "changed since the original open?)"
+                )
+            skipped += len(chunk)
+    except BaseException:
+        s.close()
+        raise
+    return s
 
 
 #: file-extension → compression kind, used by ``compression="auto"``.

@@ -5,8 +5,9 @@ with the reference mmap reader's behaviour (``src/io/mmap.rs:99-284``): the
 header is validated at construction, a ragged record region raises
 :class:`InvalidMapSize`, and :meth:`MmapReader.slice` is a zero-copy,
 bounds-checked view with the reference's error payloads. The map is a
-``np.memmap`` of :data:`RECORD_DTYPE`. (The host thread engine,
-``process_parallel``, is not part of the port yet.)
+``np.memmap`` of :data:`RECORD_DTYPE`; clones share it.
+:meth:`MmapReader.process_parallel` runs the host thread engine
+(:func:`ibu_tpu_torch.parallel.host.process_parallel`).
 """
 
 from __future__ import annotations
@@ -98,3 +99,19 @@ class MmapReader:
     def indices(self) -> np.ndarray:
         """``uint64`` index column (zero-copy strided view)."""
         return self._map["index"]
+
+    def clone(self) -> "MmapReader":
+        """A cheap copy sharing the same map (ref ``mmap.rs:30-31``)."""
+        new = object.__new__(MmapReader)
+        new._header = self._header
+        new._len = self._len
+        new._map = self._map
+        new._path = self._path
+        return new
+
+    def process_parallel(self, processor, num_threads: int = 0) -> None:
+        """Host-thread data-parallel processing (ref ``mmap.rs:286-332``):
+        :func:`ibu_tpu_torch.parallel.host.process_parallel`."""
+        from ibu_tpu_torch.parallel.host import process_parallel
+
+        process_parallel(self, processor, num_threads)

@@ -1,7 +1,6 @@
 """Streaming IBU reader and bulk loader.
 
-A copy of :mod:`ibu_tpu.io.reader` (without stdin, ``Reader.clone`` and the
-native threaded read), with the reference reader's behaviour
+A copy of :mod:`ibu_tpu.io.reader`, with the reference reader's behaviour
 (``src/io/reader.rs:90-535``):
 
 * the header is read and validated at construction (``reader.rs:152-176``);
@@ -13,9 +12,11 @@ native threaded read), with the reference reader's behaviour
   :class:`CompressionError`;
 * ``bytes_read`` starts at 32 (the header) and tracks the stream position;
 * ``from_path`` transparently decompresses gzip/zstd (``reader.rs:345-357``);
+  ``from_stdin`` and ``from_optional_path`` follow ``reader.rs:389-434``;
+* ``clone`` duplicates a reader mid-stream (``reader.rs:90``);
 * :func:`load_to_vec` bulk-loads a plain file, raising
   :class:`InvalidMapSize` when the record region is ragged
-  (``reader.rs:510-535``).
+  (``reader.rs:510-535``), with the native threaded ``pread`` from 8 MB.
 
 :meth:`Reader.batches` yields structured record arrays, the form the device
 stream and the histogram engines take.
@@ -23,7 +24,9 @@ stream and the histogram engines take.
 
 from __future__ import annotations
 
+import io
 import os
+import sys
 from typing import BinaryIO, Iterator
 
 import numpy as np
@@ -31,11 +34,59 @@ import numpy as np
 from ibu_tpu_torch.constructs.header import HEADER_SIZE, Header
 from ibu_tpu_torch.constructs.record import RECORD_DTYPE, RECORD_SIZE, Record
 from ibu_tpu_torch.errors import CompressionError, IbuIoError, InvalidMapSize, TruncatedRecord
-from ibu_tpu_torch.io.compression import DECOMPRESSION_ERRORS, open_decompressed
+from ibu_tpu_torch.io.compression import (
+    DECOMPRESSION_ERRORS,
+    _ChainClosing,
+    open_decompressed,
+    reopen_decompressed_at,
+    wrap_decompress,
+)
 
 #: 48K records per refill, same as the reference (``reader.rs:14``).
 DEFAULT_BUFFER_RECORDS: int = 48 * 1024
 DEFAULT_BUFFER_SIZE: int = DEFAULT_BUFFER_RECORDS * RECORD_SIZE
+
+
+def _clone_stream(inner: BinaryIO, fallback_pos: int) -> BinaryIO:
+    """A copy of a binary stream with its own read position.
+
+    :class:`io.BytesIO` is copied; a plain disk file is reopened by name and
+    sought (a ``dup``'d fd would share the offset); a gzip/zstd chain over a
+    disk file is reopened and read forward ``fallback_pos`` decompressed
+    bytes. ``fallback_pos`` is the reader's logical position, also used where
+    a plain stream cannot ``tell()``. A stream with no source to reopen
+    (stdin, a pipe) raises :class:`TypeError`: the reference's ``R: Clone``
+    bound (``reader.rs:90``) checked at run time."""
+    if isinstance(inner, io.BytesIO):
+        dup = io.BytesIO(inner.getvalue())
+        dup.seek(inner.tell())
+        return dup
+    name = getattr(inner, "name", None)
+    if isinstance(inner, _ChainClosing):
+        if isinstance(name, str) and os.path.isfile(name):
+            return reopen_decompressed_at(name, fallback_pos)
+        raise TypeError(
+            "Reader over a source-less compressed stream (stdin/pipe) is "
+            "not cloneable; path-backed compressed readers clone by "
+            "re-open + skip (reference derive(Clone), reader.rs:90)"
+        )
+    if isinstance(name, str) and os.path.isfile(name):
+        try:
+            pos = inner.tell()
+        except (OSError, ValueError, AttributeError):
+            pos = fallback_pos
+        dup = open(name, "rb")
+        try:
+            dup.seek(pos)
+        except OSError:
+            dup.close()
+            raise
+        return dup
+    raise TypeError(
+        f"Reader over {type(inner).__name__} is not cloneable; only "
+        "BytesIO, plain disk files, and path-backed compressed streams "
+        "support clone() (the reference requires R: Clone, reader.rs:90)"
+    )
 
 
 class Reader:
@@ -70,6 +121,35 @@ class Reader:
         """Open ``path``, transparently decompressing gzip/zstd
         (ref ``reader.rs:345-357``)."""
         return cls(open_decompressed(path))
+
+    @classmethod
+    def from_stdin(cls) -> "Reader":
+        """Read standard input, with decompression sniffing
+        (ref ``reader.rs:389-401``)."""
+        return cls(wrap_decompress(sys.stdin.buffer))
+
+    @classmethod
+    def from_optional_path(cls, path: str | None) -> "Reader":
+        """``path=None`` → stdin (ref ``reader.rs:429-434``)."""
+        if path is None:
+            return cls.from_stdin()
+        return cls.from_path(path)
+
+    def clone(self) -> "Reader":
+        """A copy of this reader, buffer and stream position included, over
+        a copy of its stream (:func:`_clone_stream`): an in-memory buffer, a
+        plain disk file, or a gzip/zstd chain over a disk file, reread to the
+        same position. A reader of stdin or a pipe raises
+        :class:`TypeError`."""
+        new = object.__new__(Reader)
+        new._inner = _clone_stream(self._inner, self._bytes_read)
+        new._header = Header.from_bytes(self._header.as_bytes())
+        new._buffer = bytearray(self._buffer)
+        new._pos = self._pos
+        new._cap = self._cap
+        new._bytes_read = self._bytes_read
+        new._eof = self._eof
+        return new
 
     def header(self) -> Header:
         """A copy of the validated file header (ref ``reader.rs:274-276``)."""
@@ -172,7 +252,10 @@ def load_to_vec(path: str) -> tuple[Header, np.ndarray]:
     """Bulk-load an uncompressed IBU file (ref ``reader.rs:510-535``):
     validate the header, check ``(filesize - 32) % 24 == 0`` (else
     :class:`InvalidMapSize`) and read the record region in one call. Like
-    the reference, this path does not sniff compression."""
+    the reference, this path does not sniff compression. From 8 MB of
+    records the read goes through the native threaded ``pread``
+    (:func:`ibu_tpu_torch.native.pread_parallel`) where the host library is
+    built."""
     try:
         size = os.path.getsize(path)
         with open(path, "rb") as f:
@@ -188,9 +271,25 @@ def load_to_vec(path: str) -> tuple[Header, np.ndarray]:
             if data_size % RECORD_SIZE != 0:
                 raise InvalidMapSize()
             n = data_size // RECORD_SIZE
-            records = np.fromfile(f, dtype=RECORD_DTYPE, count=n)
+            records = _bulk_read(f, n)
             if len(records) != n:
                 raise IbuIoError(f"short read: wanted {n} records, got {len(records)}")
             return header, records
     except OSError as e:
         raise IbuIoError(e) from e
+
+
+#: below this many bytes a threaded pread is not worth starting its threads
+_NATIVE_READ_MIN_BYTES = 8 << 20
+
+
+def _bulk_read(f: BinaryIO, n: int) -> np.ndarray:
+    """``n`` records of ``f``, which stands just after the header."""
+    if n * RECORD_SIZE >= _NATIVE_READ_MIN_BYTES:
+        from ibu_tpu_torch import native
+
+        if native.available():
+            out = np.empty(n, dtype=RECORD_DTYPE)
+            native.pread_parallel(f.fileno(), out, HEADER_SIZE)
+            return out
+    return np.fromfile(f, dtype=RECORD_DTYPE, count=n)

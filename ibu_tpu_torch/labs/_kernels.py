@@ -33,8 +33,13 @@ from __future__ import annotations
 import torch
 
 from ibu_tpu_torch.ops import _build
-from ibu_tpu_torch.ops.codec import torch_pack, torch_unpack
-from ibu_tpu_torch.ops.codec_cuda import _check_device, _check_tensor, _raise_on
+from ibu_tpu_torch.ops.codec_cuda import (
+    _check_device,
+    _check_tensor,
+    _raise_on,
+    torch_pack,
+    torch_unpack,
+)
 
 BC, UMI, COMB = 16, 12, 32
 #: encode modes, in the order of the C interface's mode numbers

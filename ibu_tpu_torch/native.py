@@ -1,11 +1,13 @@
-"""Host runtime: the threaded field-sum engine, the host 2-bit codec, the
-FASTQ chunk parser, the record sort, the external merge sort and the merges of
-sorted runs and files.
+"""Host runtime: the bulk and threaded file I/O, the threaded field-sum
+engine, the host 2-bit codec, the FASTQ chunk parser, the record sort, the
+external merge sort and the merges of sorted runs and files.
 
 The port's copy of the parts of :mod:`ibu_tpu.native` it uses:
-:func:`checksum_parallel`, :func:`pack_2bit`, :func:`unpack_2bit`,
-:func:`fastq_gather`, :func:`sort_records`, :func:`sort_file`,
-:func:`run_interval`, :func:`merge_runs_interval` and :func:`merge_files`, on
+:func:`write_file`, :func:`read_records`, :func:`pread_parallel`,
+:func:`pwrite_parallel`, :func:`file_size`, :func:`checksum_parallel`,
+:func:`pack_2bit`, :func:`unpack_2bit`, :func:`fastq_gather`,
+:func:`sort_records`, :func:`sort_file`, :func:`run_interval`,
+:func:`merge_runs_interval` and :func:`merge_files`, on
 ``csrc/host_native.cpp``. ``g++`` builds the source at first use into
 ``build/ibu_tpu_torch/libibu_host_<hash>.so`` beside the package, named by a
 hash of the source and the flags, through a private temporary file renamed
@@ -81,6 +83,16 @@ def _load() -> ctypes.CDLL | None:
         _load_error = str(e)
         return None
     ptr, u64, u32, i32 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int
+    lib.ibu_write_file.argtypes = [ctypes.c_char_p, ptr, ptr, u64]
+    lib.ibu_write_file.restype = i32
+    lib.ibu_read_file.argtypes = [ctypes.c_char_p, ptr, u64, u64]
+    lib.ibu_read_file.restype = i32
+    lib.ibu_file_size.argtypes = [ctypes.c_char_p, ctypes.POINTER(u64)]
+    lib.ibu_file_size.restype = i32
+    lib.ibu_pread_parallel.argtypes = [i32, ptr, u64, u64, i32]
+    lib.ibu_pread_parallel.restype = i32
+    lib.ibu_pwrite_parallel.argtypes = [i32, ptr, u64, u64, i32]
+    lib.ibu_pwrite_parallel.restype = i32
     lib.ibu_checksum_parallel.argtypes = [ctypes.c_char_p, u64, ptr, i32]
     lib.ibu_checksum_parallel.restype = i32
     lib.ibu_pack_2bit_mt.argtypes = [ptr, u64, u32, ptr, i32, i32]
@@ -126,6 +138,59 @@ def _require() -> ctypes.CDLL:
 def _check(rc: int, what: str) -> None:
     if rc != 0:
         raise OSError(-rc, f"native {what} failed: {os.strerror(-rc)}")
+
+
+def write_file(path: str, header_bytes: bytes | None, records: np.ndarray) -> None:
+    """Header (32 bytes, or ``None`` for a headerless run) and record batch
+    written to a new file at ``path`` in one native call."""
+    lib = _require()
+    records = np.ascontiguousarray(records)
+    hdr = None
+    if header_bytes is not None:
+        if len(header_bytes) != HEADER_SIZE:
+            raise ValueError("header must be 32 bytes")
+        hdr = (ctypes.c_uint8 * HEADER_SIZE).from_buffer_copy(header_bytes)
+    _check(lib.ibu_write_file(os.fsencode(path), hdr, records.ctypes.data, records.nbytes),
+           "write_file")
+
+
+def read_records(path: str, n_records: int, offset: int = HEADER_SIZE) -> np.ndarray:
+    """``n_records`` records read from byte ``offset`` of ``path``."""
+    lib = _require()
+    out = np.empty(n_records, dtype=RECORD_DTYPE)
+    _check(lib.ibu_read_file(os.fsencode(path), out.ctypes.data, out.nbytes, offset),
+           "read_records")
+    return out
+
+
+def pread_parallel(fd: int, out: np.ndarray, offset: int, nthreads: int = 0) -> None:
+    """Threaded ``pread`` of ``out.nbytes`` bytes at ``offset`` of ``fd`` into
+    ``out`` (contiguous and writeable). Page-cache reads are memcpy-bound, so
+    disjoint ranges over ``nthreads`` threads (0: all cores) scale them. The
+    fd's file offset is untouched."""
+    lib = _require()
+    if not (out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError("pread_parallel needs a contiguous writeable array")
+    _check(lib.ibu_pread_parallel(fd, out.ctypes.data, out.nbytes, offset, nthreads),
+           "pread_parallel")
+
+
+def pwrite_parallel(fd: int, data, offset: int, nthreads: int = 0) -> None:
+    """Threaded ``pwrite`` of ``data`` (any buffer of bytes) at ``offset`` of
+    ``fd``; writes past the end extend the file. The fd's file offset is
+    untouched: a caller that mixes this with buffered writes seeks its own
+    stream."""
+    lib = _require()
+    arr = np.frombuffer(data, dtype=np.uint8)
+    _check(lib.ibu_pwrite_parallel(fd, arr.ctypes.data, arr.nbytes, offset, nthreads),
+           "pwrite_parallel")
+
+
+def file_size(path: str) -> int:
+    """Size of ``path`` in bytes (``stat``)."""
+    out = ctypes.c_uint64(0)
+    _check(_require().ibu_file_size(os.fsencode(path), ctypes.byref(out)), "file_size")
+    return out.value
 
 
 def checksum_parallel(path: str, n_records: int, nthreads: int = 0) -> tuple[int, int, int]:

@@ -1,4 +1,4 @@
-"""2-bit nucleotide codec: the host numpy reference and the plain torch codec.
+"""2-bit nucleotide codec: the host numpy reference.
 
 Format contract (shared with :mod:`ibu_tpu.ops.codec`): A=00, C=01, G=10,
 T=11, base *i* at bits ``2i`` of the packed word, at most 32 bases per u64.
@@ -8,15 +8,15 @@ total; decoding gives uppercase ASCII.
 The numpy functions (with the host API :func:`encode_seqs` /
 :func:`decode_seqs`) are copies of the host-only part of
 :mod:`ibu_tpu.ops.codec`, which cannot be imported here because it loads jax;
-their error texts are kept byte for byte. The torch functions work on
-row-major ``(N, L)`` uint8 rows and ``(N,)`` int64 words (the u64 bits) on any
-device; they are the plain versions the CUDA codec kernels are held against.
+their error texts are kept byte for byte. The module imports no torch: the
+plain torch codec is :func:`ibu_tpu_torch.ops.codec_cuda.torch_pack` and
+:func:`~ibu_tpu_torch.ops.codec_cuda.torch_unpack`, beside the kernels.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
+
 
 # ---------------------------------------------------------------------------
 # numpy reference (host)
@@ -114,32 +114,3 @@ def decode_seqs(words: np.ndarray, length: int) -> list[str]:
     ['ACGT']
     """
     return rows_to_seqs(np_unpack(np.asarray(words, dtype=np.uint64), length))
-
-
-# ---------------------------------------------------------------------------
-# plain torch codec on rows
-# ---------------------------------------------------------------------------
-
-
-def torch_pack(rows: torch.Tensor) -> torch.Tensor:
-    """``(N, L)`` uint8 ASCII → ``(N,)`` int64 packed words (u64 bits).
-
-    The 2-bit fields are disjoint, so their sum is their bitwise or and never
-    carries, bit 63 included.
-    """
-    t = (rows >> 1) & 3
-    codes = (t ^ (t >> 1)).to(torch.int64)
-    shifts = 2 * torch.arange(rows.shape[1], dtype=torch.int64, device=rows.device)
-    return (codes << shifts).sum(dim=1)
-
-
-#: code → uppercase ASCII.
-_ASCII = (65, 67, 71, 84)
-
-
-def torch_unpack(words: torch.Tensor, length: int) -> torch.Tensor:
-    """``(N,)`` int64 words → ``(N, length)`` uppercase ASCII uint8."""
-    shifts = 2 * torch.arange(length, dtype=torch.int64, device=words.device)
-    codes = (words[:, None] >> shifts) & 3
-    table = torch.tensor(_ASCII, dtype=torch.uint8, device=words.device)
-    return table[codes]

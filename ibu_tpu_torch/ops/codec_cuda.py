@@ -18,7 +18,6 @@ from __future__ import annotations
 import torch
 
 from ibu_tpu_torch.ops import _build
-from ibu_tpu_torch.ops.codec import torch_pack, torch_unpack
 from ibu_tpu_torch.ops.u64 import to_signed
 
 
@@ -65,6 +64,36 @@ def _salt_word(salt: int | None) -> int:
     """The int64 the index is XORed with: the u32 ``salt`` in both halves."""
     salt = _check_salt(salt)
     return to_signed(salt | salt << 32)
+
+
+# ---------------------------------------------------------------------------
+# plain torch codec on rows: ``(N, L)`` uint8 ASCII and ``(N,)`` int64 words
+# (the u64 bits), on any device
+# ---------------------------------------------------------------------------
+
+
+def torch_pack(rows: torch.Tensor) -> torch.Tensor:
+    """``(N, L)`` uint8 ASCII → ``(N,)`` int64 packed words (u64 bits).
+
+    The 2-bit fields are disjoint, so their sum is their bitwise or and never
+    carries, bit 63 included.
+    """
+    t = (rows >> 1) & 3
+    codes = (t ^ (t >> 1)).to(torch.int64)
+    shifts = 2 * torch.arange(rows.shape[1], dtype=torch.int64, device=rows.device)
+    return (codes << shifts).sum(dim=1)
+
+
+#: code → uppercase ASCII.
+_ASCII = (65, 67, 71, 84)
+
+
+def torch_unpack(words: torch.Tensor, length: int) -> torch.Tensor:
+    """``(N,)`` int64 words → ``(N, length)`` uppercase ASCII uint8."""
+    shifts = 2 * torch.arange(length, dtype=torch.int64, device=words.device)
+    codes = (words[:, None] >> shifts) & 3
+    table = torch.tensor(_ASCII, dtype=torch.uint8, device=words.device)
+    return table[codes]
 
 
 def plain_encode_records(

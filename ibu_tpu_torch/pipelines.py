@@ -7,7 +7,10 @@ subsample).
 Counterpart of :mod:`ibu_tpu.pipelines` for these paths: the same
 signatures, defaults, return dicts and error texts, plus a ``device``
 argument wherever a call touches torch (see
-:func:`ibu_tpu_torch.utils.device.resolve_device`). On a CUDA device the
+:func:`ibu_tpu_torch.utils.device.resolve_device`). Torch is imported by the
+calls that use it, not by the module, so a host engine (``count_matrix``'s
+default, ``dedup_file`` with the native sort, ``file_stats(engine="native")``)
+starts without it. On a CUDA device the
 codec runs the hand-written kernels of :mod:`ibu_tpu_torch.ops.codec_cuda`;
 on the CPU it runs their plain torch versions. The engines the reference
 names ``"host"`` (``count_matrix``, ``call_cells`` and ``barcode_counts``
@@ -27,8 +30,9 @@ import os
 import struct
 import tempfile
 
+from typing import TYPE_CHECKING
+
 import numpy as np
-import torch
 
 from ibu_tpu_torch import native
 from ibu_tpu_torch.constructs.header import HEADER_SIZE, Header
@@ -51,17 +55,9 @@ from ibu_tpu_torch.io.mmap import MmapReader
 from ibu_tpu_torch.io.reader import Reader
 from ibu_tpu_torch.io.writer import Writer
 from ibu_tpu_torch.ops import codec as C
-from ibu_tpu_torch.ops.codec_cuda import decode_records, encode_records
-from ibu_tpu_torch.ops.stats import group_sum_np, pair_molecule_counts, sort_records
-from ibu_tpu_torch.ops.u64 import (
-    U64_MASK,
-    records_from_tensor,
-    records_to_tensor,
-    to_device,
-    to_host,
-    u64_as_int64,
-)
-from ibu_tpu_torch.utils.device import resolve_device
+
+if TYPE_CHECKING:
+    import torch
 
 
 def _codec_engine(engine: str, device: str | torch.device | None) -> str:
@@ -78,6 +74,8 @@ def _codec_engine(engine: str, device: str | torch.device | None) -> str:
 
 
 def _rows_to_device(rows: np.ndarray, device: torch.device) -> torch.Tensor:
+    from ibu_tpu_torch.ops.u64 import to_device
+
     return to_device(np.ascontiguousarray(rows, dtype=np.uint8), device)
 
 
@@ -106,6 +104,10 @@ def encode_batch(
             bc = C.np_pack(bc_rows)
             umi = C.np_pack(umi_rows)
         return make_records(bc, umi, np.asarray(index, dtype=np.uint64))
+    from ibu_tpu_torch.ops.codec_cuda import encode_records
+    from ibu_tpu_torch.ops.u64 import records_from_tensor, to_device, u64_as_int64
+    from ibu_tpu_torch.utils.device import resolve_device
+
     device = resolve_device(device)
     records = encode_records(
         _rows_to_device(bc_rows, device),
@@ -136,6 +138,10 @@ def decode_batch(
             bc_rows = C.np_unpack(bc_words, bc_len)
             umi_rows = C.np_unpack(umi_words, umi_len)
         return bc_rows, umi_rows, np.asarray(records["index"])
+    from ibu_tpu_torch.ops.codec_cuda import decode_records
+    from ibu_tpu_torch.ops.u64 import records_to_tensor, to_host
+    from ibu_tpu_torch.utils.device import resolve_device
+
     device = resolve_device(device)
     bc, umi, index = decode_records(
         records_to_tensor(records, device), bc_len, umi_len
@@ -153,6 +159,10 @@ def sort_batch(
     """Device lexicographic sort of a structured record array; the hints
     shorten the sort keys and a violated hint raises
     (:func:`ibu_tpu_torch.ops.stats.sort_records`)."""
+    from ibu_tpu_torch.ops.stats import sort_records
+    from ibu_tpu_torch.ops.u64 import records_from_tensor, records_to_tensor
+    from ibu_tpu_torch.utils.device import resolve_device
+
     device = resolve_device(device)
     return records_from_tensor(
         sort_records(records_to_tensor(records, device), bc_len, umi_len, index_bits)
@@ -191,6 +201,11 @@ def encode_sorted_file(
         index = np.asarray(index, dtype=np.uint64)
         index_hi_zero = not (index >> np.uint64(32)).any()
     bc_len, umi_len = bc_rows.shape[1], umi_rows.shape[1]
+    from ibu_tpu_torch.ops.codec_cuda import encode_records
+    from ibu_tpu_torch.ops.stats import sort_records
+    from ibu_tpu_torch.ops.u64 import records_from_tensor, to_device, u64_as_int64
+    from ibu_tpu_torch.utils.device import resolve_device
+
     device = resolve_device(device)
     records = encode_records(
         _rows_to_device(bc_rows, device),
@@ -224,14 +239,14 @@ def decode_file(
 
 def _require_plain(path: str, tool: str) -> None:
     """Raise a clear error when a tool that maps its input gets a gzip/zstd
-    file (same text as :mod:`ibu_tpu.pipelines`)."""
+    file (the reference's text, naming this package's command)."""
     with open(path, "rb") as f:
         kind = sniff_compression(f.read(4))
     if kind is not None:
         raise ValueError(
             f"{path} is {kind}-compressed; {tool} needs random access into "
             "the record region — decompress it first (e.g. `python -m "
-            f"ibu_tpu concat plain.ibu {path}`)"
+            f"ibu_tpu_torch concat plain.ibu {path}`)"
         )
 
 
@@ -263,6 +278,10 @@ def sort_file_device(
     index hi words when ``index_bits`` is not given), and writes with the
     input's flags and the sorted flag set. Returns the written header.
     """
+    from ibu_tpu_torch.ops.stats import sort_records
+    from ibu_tpu_torch.ops.u64 import records_from_tensor, records_to_tensor
+    from ibu_tpu_torch.utils.device import resolve_device
+
     _require_plain(in_path, "sort")
     device = resolve_device(device)
     reader = MmapReader(in_path)
@@ -475,9 +494,18 @@ def export_fastq(
                 yield np.concatenate(pend)
     qbyte = ord(qual)
     n = 0
+    # the engine is chosen, and a device engine's device looked up, before
+    # the output is created: without a card nothing is written
+    engine = _codec_engine("auto", device)
+    if engine == "device":
+        from ibu_tpu_torch.utils.device import resolve_device
+
+        device = resolve_device(device)
     with open_compressed(fastq_path) as out:
         for recs in batches():
-            bc_rows, umi_rows, idx = decode_batch(recs, h.bc_len, h.umi_len, device=device)
+            bc_rows, umi_rows, idx = decode_batch(
+                recs, h.bc_len, h.umi_len, engine=engine, device=device
+            )
             out.write(_fastq_block(bc_rows, umi_rows, idx, qbyte))
             n += len(recs)
     return n
@@ -725,6 +753,8 @@ def ingest_fastq(
     out_compression = infer_compression(ibu_path)
     out_of_core = native.available()
     if not out_of_core:
+        from ibu_tpu_torch.utils.device import resolve_device
+
         device = resolve_device(device)  # the sort below needs it: fail early
     chunk_records = 32 * 1024 * 1024 // RECORD_SIZE  # the external sort's default
     all_records: list = []
@@ -828,6 +858,8 @@ def host_stream_stats(batches) -> dict:
     """Count + exact u64 field checksums over an iterator of structured
     record batches, pure numpy: uint64 column sums wrap mod 2^64, which is
     the checksum's arithmetic."""
+    from ibu_tpu_torch.ops.u64 import U64_MASK
+
     n = 0
     sums = [0, 0, 0]
     for batch in batches:
@@ -934,10 +966,12 @@ def dedup_file(
     In sort order duplicates of a pair are adjacent and the first carries
     the minimum index, so a sorted file streams in one pass: a keep-mask per
     batch plus a one-record carry across batch boundaries. An unsorted input
-    is first sorted on ``device`` (:func:`sort_file_device`) into a temporary
-    file. (The JAX package prefers its native external merge sort there; the
-    output bytes are the same either way, because records with equal
-    (barcode, umi, index) triples are identical.) Order is verified batch by
+    is first sorted into a temporary file, as in the reference: out of core
+    by :func:`ibu_tpu_torch.native.sort_file` where the host library is
+    built (so a file larger than the card's memory dedups), else on
+    ``device`` (:func:`sort_file_device`). The bytes are the same either
+    way, because records with equal (barcode, umi, index) triples are
+    identical. Order is verified batch by
     batch during the pass, so a file with a lying sorted flag raises; pass
     ``assume_sorted=False`` to force the sort, or ``True`` to trust an unset
     flag.
@@ -955,7 +989,10 @@ def dedup_file(
         fd, tmp = tempfile.mkstemp(suffix=".ibu", dir=os.path.dirname(os.path.abspath(out_path)))
         os.close(fd)
         try:
-            sort_file_device(in_path, tmp, device=device)
+            if native.available():
+                native.sort_file(in_path, tmp)
+            else:
+                sort_file_device(in_path, tmp, device=device)
             reader = MmapReader(tmp)
         except BaseException:
             os.unlink(tmp)
@@ -1091,7 +1128,7 @@ def lookup_barcodes(in_path: str, barcodes) -> np.ndarray:
     if not reader.header().sorted():
         raise ValueError(
             f"{in_path}: lookup needs the sorted flag (binary search); "
-            "run `python -m ibu_tpu sort` first"
+            "run `python -m ibu_tpu_torch sort` first"
         )
     col = reader.records["barcode"]  # strided memmap view, never copied
     n = len(col)
@@ -1149,6 +1186,8 @@ def host_stream_histogram(batches) -> dict[int, int]:
     """Barcode → count over an iterator of structured record batches, pure
     host numpy: ``np.unique`` per batch and one final group-sum (the merge
     of :func:`barcode_counts`'s host engine)."""
+    from ibu_tpu_torch.ops.stats import group_sum_np
+
     keys, counts = group_sum_np(_batch_uniques(batches))
     return dict(zip(keys.tolist(), counts.tolist()))
 
@@ -1186,6 +1225,8 @@ def barcode_counts(
         return barcodes[order], counts[order]
     if engine != "host":
         raise ValueError(f"engine must be 'host' or 'device', got {engine!r}")
+    from ibu_tpu_torch.ops.stats import group_sum_np
+
     return group_sum_np(_batch_uniques(batches))
 
 
@@ -1258,6 +1299,9 @@ def _device_pair_counts(
     Returns ``(pairs, counts)``: a ``(P, 2)`` uint64 array of distinct
     (barcode, index) pairs and their int64 counts.
     """
+    from ibu_tpu_torch.ops.stats import pair_molecule_counts
+    from ibu_tpu_torch.ops.u64 import records_to_tensor, to_host
+
     n = reader.len()
     cap = min(max_pairs, 1 << 14)  # grown on demand (see below)
     acc_pairs: list[np.ndarray] = []
@@ -1388,7 +1432,7 @@ def _count_range_partial(
                 raise ValueError(
                     f"{in_path}: the header claims sorted order but "
                     "records are out of order; re-sort first (`python "
-                    "-m ibu_tpu sort`) or clear the flag (`repair`)"
+                    "-m ibu_tpu_torch sort`) or clear the flag (`repair`)"
                 )
             first = np.ones(len(keys), dtype=bool)
             first[1:] = keys[1:] != keys[:-1]
@@ -1484,6 +1528,8 @@ def count_matrix(
     n = reader.len()
 
     if engine == "device":
+        from ibu_tpu_torch.utils.device import resolve_device
+
         dev_pairs, counts = _device_pair_counts(
             reader, batch_records, max_pairs, resolve_device(device)
         )
@@ -1585,6 +1631,7 @@ def correct_file(
     "allowlist"}``.
     """
     from ibu_tpu_torch.ops.correct import CORRECTED, DROP, EXACT, correct_batch
+    from ibu_tpu_torch.utils.device import resolve_device
 
     allow = np.unique(np.asarray(list(barcodes), dtype=np.uint64))
     _require_plain(in_path, "correct_file")

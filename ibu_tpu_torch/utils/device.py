@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ibu_tpu_torch.errors import NO_CARD_HINT, NoCardError
+
 NO_CARD = ('no CUDA card is available (torch.cuda.is_available() is false); '
            'pass device="cpu" to run the plain torch versions on the CPU')
 
@@ -18,12 +20,12 @@ NO_CARD = ('no CUDA card is available (torch.cuda.is_available() is false); '
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` or ``"cuda"`` → the current CUDA card; ``"cuda:i"`` → card
     ``i``; ``"cpu"`` → the CPU. A CUDA device, ``None`` included, raises
-    ``RuntimeError`` when no card is available, rather than running
-    somewhere else."""
+    :class:`~ibu_tpu_torch.errors.NoCardError` (a ``RuntimeError``) when no
+    card is available, rather than running somewhere else."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but {NO_CARD}")
+            raise NoCardError(f"device {device} requested but {NO_CARD}")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     elif device.type != "cpu":
@@ -36,8 +38,7 @@ def select_device(arg: str | None, prog: str) -> torch.device | None:
     for by ``--device cpu``. ``None`` (after a message) when there is no card
     and the CPU was not asked for."""
     if arg is None and not torch.cuda.is_available():
-        print(f"{prog}: no CUDA card (torch.cuda.is_available() is false); "
-              "pass --device cpu to run the plain torch versions on the CPU", flush=True)
+        print(f"{prog}: {NO_CARD_HINT}", flush=True)
         return None
     try:
         return resolve_device(arg)

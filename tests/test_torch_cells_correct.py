@@ -31,6 +31,7 @@ from ibu_tpu_torch import pipelines as TPL
 from ibu_tpu_torch.examples import workflow as TW
 from ibu_tpu_torch.ops import correct as TC
 from ibu_tpu_torch.ops import knee as TK
+from tests.test_torch_cli import port_text
 
 CPU = "cpu"
 REPO = Path(__file__).resolve().parents[1]
@@ -67,7 +68,7 @@ def same_error(jax_call, torch_call, exc=ValueError):
         jax_call()
     with pytest.raises(exc) as torch_err:
         torch_call()
-    assert str(torch_err.value) == str(jax_err.value)
+    assert str(torch_err.value) == port_text(str(jax_err.value))
 
 
 # ---------------------------------------------------------------------------

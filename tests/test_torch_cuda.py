@@ -656,3 +656,36 @@ def test_auto_on_card_picks_an_engine_and_says_so(card, tmp_path, fresh_select, 
 def test_feed_probe_on_card_times_pinned_copies(card, fresh_select):
     gbps = fresh_select.measure_device_feed_gbps(device=card)
     assert 0.05 < gbps < 200
+
+
+def test_cli_codec_commands_on_card_equal_the_cpu(card, tmp_path, fresh_select, monkeypatch,
+                                                  capsys):
+    """``decode``, ``export-fastq`` and ``ingest-fastq`` through
+    ``ibu_tpu_torch.__main__.main`` with no ``--device`` (the card) and with
+    ``--device cpu``: the same output, and the codec kernels launched once
+    per batch on the card only."""
+    from ibu_tpu_torch import DEFAULT_BUFFER_RECORDS
+    from ibu_tpu_torch.__main__ import main
+
+    monkeypatch.setenv("IBU_AUTO_ENGINE", "device")
+    n = 150_001
+    src = str(tmp_path / "src.ibu")
+    TPL.encode_sorted_file(src, rows(n, 16, 47), rows(n, 12, 48), device=card)
+    reader_batches = -(-n // DEFAULT_BUFFER_RECORDS)  # one decode per Reader batch
+    outs, launches = {}, {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        fq, back = str(tmp_path / f"{tag}.fastq"), str(tmp_path / f"{tag}.ibu")
+        K.decode_records.launches = K.encode_records.launches = 0
+        assert main(["decode", src, *extra]) == 0
+        tsv = capsys.readouterr().out
+        decoded = K.decode_records.launches
+        assert main(["export-fastq", src, fq, *extra]) == 0
+        exported = K.decode_records.launches - decoded
+        assert main(["ingest-fastq", fq, back, *extra]) == 0
+        capsys.readouterr()
+        launches[tag] = (decoded, exported, K.encode_records.launches)
+        with open(fq, "rb") as a, open(back, "rb") as b:
+            outs[tag] = (tsv, a.read(), b.read())
+    assert launches["card"] == (reader_batches, 1, 1) and launches["cpu"] == (0, 0, 0)
+    assert outs["card"] == outs["cpu"]
+    assert outs["card"][0].count("\n") == n

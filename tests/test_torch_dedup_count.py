@@ -17,6 +17,7 @@ from ibu_tpu import Header, MmapReader, Writer
 from ibu_tpu import pipelines as JPL
 from ibu_tpu.constructs.record import make_records
 from ibu_tpu_torch import pipelines as TPL
+from tests.test_torch_cli import port_text
 
 CPU = "cpu"
 U64_MAX = (1 << 64) - 1
@@ -50,7 +51,7 @@ def same_error(jax_call, torch_call, exc=ValueError):
         jax_call()
     with pytest.raises(exc) as torch_err:
         torch_call()
-    assert str(torch_err.value) == str(jax_err.value)
+    assert str(torch_err.value) == port_text(str(jax_err.value))
     return str(torch_err.value)
 
 

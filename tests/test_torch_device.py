@@ -7,13 +7,17 @@ and never runs on the CPU in its place. The commands exit 2 without
 ``--device cpu``.
 """
 
+import os
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
-from ibu_tpu_torch import Header, MmapReader, Writer, make_records
+from ibu_tpu_torch import Header, MmapReader, Writer, make_records, native
 from ibu_tpu_torch import pipelines as PL
 from ibu_tpu_torch import validate as V
+from ibu_tpu_torch.errors import NO_CARD_HINT, NoCardError
 from ibu_tpu_torch.examples import fastq_ingest as FI
 from ibu_tpu_torch.examples import roundtrip as RT
 from ibu_tpu_torch.examples import workflow as W
@@ -44,8 +48,9 @@ def ibu_file(tmp_path):
 
 
 def test_none_raises_and_names_the_cpu():
-    with pytest.raises(RuntimeError, match='no CUDA card is available') as err:
+    with pytest.raises(NoCardError, match='no CUDA card is available') as err:
         resolve_device(None)
+    assert isinstance(err.value, RuntimeError)
     assert 'device="cpu"' in str(err.value)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         resolve_device()
@@ -53,7 +58,7 @@ def test_none_raises_and_names_the_cpu():
 
 @pytest.mark.parametrize("device", ["cuda", "cuda:0", torch.device("cuda")])
 def test_an_explicit_card_raises(device):
-    with pytest.raises(RuntimeError, match="requested but no CUDA card is available"):
+    with pytest.raises(NoCardError, match="requested but no CUDA card is available"):
         resolve_device(device)
 
 
@@ -110,7 +115,7 @@ ENTRY_POINTS = {
     "run_matrix": lambda p: V.run_matrix(),
     "write_artifact": lambda p: V.write_artifact(p + ".json", []),
     "sort_file_device": lambda p: PL.sort_file_device(p, p + ".sorted"),
-    "dedup_file unsorted": lambda p: PL.dedup_file(p, p + ".dedup"),
+    "dedup_file unsorted": lambda p: without_native(PL.dedup_file, p, p + ".dedup"),
     "count_matrix device": lambda p: PL.count_matrix(p, p + ".m", engine="device"),
     "call_cells device": lambda p: PL.call_cells(p, p + ".txt", engine="device"),
     "correct_file": lambda p: PL.correct_file(p, p + ".fixed", [7, 14]),
@@ -127,6 +132,13 @@ ENTRY_POINTS = {
 }
 
 
+def without_native(fn, *args):
+    """``fn(*args)`` where the host library is not built, so that an unsorted
+    input is sorted on the device, as where ``g++`` is missing."""
+    with mock.patch.object(native, "available", lambda: False):
+        return fn(*args)
+
+
 def fastq_of(path):
     """A FASTQ of ``path``'s records, written beside it by the host engine."""
     records = records_of(path)
@@ -138,8 +150,25 @@ def fastq_of(path):
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
 def test_entry_points_without_device_raise(ibu_file, name):
-    with pytest.raises(RuntimeError, match='device="cpu"'):
+    with pytest.raises(NoCardError, match='device="cpu"'):
         ENTRY_POINTS[name](ibu_file)
+
+
+#: the entry points above that write a file
+WRITERS = ("encode_sorted_file", "sort_file_device", "dedup_file unsorted", "count_matrix device",
+           "call_cells device", "correct_file", "export_fastq", "ingest_fastq")
+
+
+@pytest.mark.parametrize("name", WRITERS)
+def test_entry_points_without_a_card_write_nothing(ibu_file, name):
+    """Without a card a call that writes a file raises before it creates its
+    output, and leaves no temporary file beside it."""
+    if name == "ingest_fastq":
+        fastq_of(ibu_file)  # its input
+    before = sorted(os.listdir(os.path.dirname(ibu_file)))
+    with pytest.raises(NoCardError):
+        ENTRY_POINTS[name](ibu_file)
+    assert sorted(os.listdir(os.path.dirname(ibu_file))) == before
 
 
 def test_the_same_calls_run_on_the_cpu_by_name(ibu_file):
@@ -215,9 +244,104 @@ def test_the_examples_without_a_card_exit_2(tmp_path, capsys, monkeypatch, name,
     assert "cleaned up" in capsys.readouterr().out and not list(tmp_path.iterdir())
 
 
+@pytest.mark.parametrize("name,argv", [
+    ("random", ["r.ibu", "--records", "0.001"]),
+    ("parallel", ["--records", "0.001", "--engine", "both"])])
+def test_random_and_parallel_examples_without_a_card_exit_2(tmp_path, capsys, monkeypatch, name,
+                                                            argv):
+    from ibu_tpu_torch.examples import parallel, random
+
+    main = {"random": random.main, "parallel": parallel.main}[name]
+    monkeypatch.chdir(tmp_path)
+    for extra in ([], ["--device", "cuda"]):
+        assert main([*argv, *extra]) == 2
+        printed = capsys.readouterr().out
+        assert f"{name}: " in printed and "no CUDA card" in printed
+        assert not list(tmp_path.iterdir())
+    assert main([*argv, "--device", "cpu"]) == 0
+    # the host engine of the parallel example needs no device
+    assert parallel.main(["--records", "0.001", "--engine", "host"]) == 0
+
+
 def test_workflow_without_a_card_exits_2(tmp_path, capsys):
     assert W.main(["--reads", "100", "--workdir", str(tmp_path)]) == 2
     printed = capsys.readouterr().out
     assert "workflow: no CUDA card" in printed and "--device cpu" in printed
     assert W.main(["--reads", "100", "--device", "cuda", "--workdir", str(tmp_path)]) == 2
     assert not list(tmp_path.iterdir())
+
+
+#: one call of each command that takes ``--device``, with an engine that
+#: runs on the device
+CLI_DEVICE_ARGV = {
+    "stats": ["stats", "{p}", "--engine", "device"],
+    "sort": ["sort", "{p}", "out", "--engine", "device"],
+    "histogram": ["histogram", "{p}", "--engine", "device"],
+    "decode": ["decode", "{p}"],
+    "cells": ["cells", "{p}", "-o", "out", "--engine", "device"],
+    "count": ["count", "{sorted}", "out", "--engine", "device"],
+    "correct": ["correct", "{p}", "out", "--barcodes", "{allow}"],
+    "dedup": ["dedup", "{p}", "out", "--assume-sorted", "no"],
+    "ingest-fastq": ["ingest-fastq", "{fastq}", "out"],
+    "export-fastq": ["export-fastq", "{sorted}", "out"],
+}
+
+
+@pytest.fixture
+def cli_inputs(ibu_file, tmp_path):
+    p = ibu_file
+    native.sort_file(p, p + ".sorted")
+    with open(p + ".allow", "w") as f:
+        f.write("7\n14\n")
+    out = tmp_path / "out_dir"
+    out.mkdir()
+    return {"p": p, "sorted": p + ".sorted", "allow": p + ".allow", "fastq": fastq_of(p)}, out
+
+
+@pytest.mark.parametrize("command", list(CLI_DEVICE_ARGV))
+def test_cli_device_commands_without_a_card_exit_2(cli_inputs, monkeypatch, capsys, command):
+    """No card and no ``--device``: one line on stderr naming ``--device
+    cpu``, exit 2, nothing on stdout and no output file; ``--device cuda``
+    the same; ``--device cpu`` runs."""
+    from ibu_tpu_torch.__main__ import main
+
+    inputs, out = cli_inputs
+    monkeypatch.chdir(out)
+    if command == "dedup":  # the pre-sort then runs on the device
+        monkeypatch.setattr(native, "available", lambda: False)
+    argv = [a.format(**inputs) for a in CLI_DEVICE_ARGV[command]]
+    for extra in ([], ["--device", "cuda"]):
+        assert main(argv + extra) == 2
+        printed = capsys.readouterr()
+        assert printed.out == ""
+        assert printed.err == f"ibu_tpu_torch {command}: {NO_CARD_HINT}\n"
+        assert "--device cpu" in printed.err
+        assert not list(out.iterdir())
+    assert main(argv + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out or list(out.iterdir())
+
+
+@pytest.mark.parametrize("argv,env", [
+    (["stats", "{p}", "--engine", "native"], None),
+    (["stats", "{p}", "--engine", "host"], None),
+    (["stats", "{p}"], "host"),
+    (["histogram", "{p}", "--engine", "host"], None),
+    (["sort", "{p}", "out"], None),
+    (["dedup", "{p}", "out", "--assume-sorted", "no"], None),
+    (["count", "{sorted}", "out"], None),
+    (["cells", "{p}", "-o", "out"], None),
+    (["decode", "{p}"], "host"),
+    (["export-fastq", "{sorted}", "out"], "host"),
+    (["ingest-fastq", "{fastq}", "out"], "host"),
+], ids=lambda v: v if isinstance(v, str) else " ".join(v) if v else "")
+def test_cli_host_engines_need_no_card(cli_inputs, monkeypatch, capsys, argv, env):
+    """A command whose engine does not use a device looks none up: it runs
+    without a card and without ``--device``."""
+    from ibu_tpu_torch.__main__ import main
+
+    inputs, out = cli_inputs
+    monkeypatch.chdir(out)
+    if env:
+        monkeypatch.setenv("IBU_AUTO_ENGINE", env)
+    assert main([a.format(**inputs) for a in argv]) == 0
+    assert "no CUDA card" not in capsys.readouterr().err

@@ -17,6 +17,7 @@ from ibu_tpu import Header, Writer
 from ibu_tpu import pipelines as JPL
 from ibu_tpu.constructs.record import make_records
 from ibu_tpu_torch import pipelines as TPL
+from tests.test_torch_cli import port_text
 
 HAVE_ZSTD = True
 try:
@@ -78,6 +79,8 @@ def same(j, t):
     assert t[0] == j[0], (j, t)
     if j[0] == "ok" and isinstance(j[1], np.ndarray):
         assert t[1].dtype == j[1].dtype and np.array_equal(t[1], j[1])
+    elif j[0] == "error":  # the texts name each package's own command
+        assert t == (*j[:2], port_text(j[2]))
     else:
         assert t == j
 

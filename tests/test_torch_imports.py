@@ -2,6 +2,7 @@
 jax, so it also runs where jax is not installed."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +29,8 @@ def test_port_loads_no_jax():
         "import ibu_tpu_torch.examples.workflow\n"
         "import ibu_tpu_torch.parallel.select, ibu_tpu_torch.parallel.host\n"
         "import ibu_tpu_torch.examples.fastq_ingest, ibu_tpu_torch.examples.roundtrip\n"
+        "import ibu_tpu_torch.__main__, ibu_tpu_torch.parallel.processor\n"
+        "import ibu_tpu_torch.examples.random, ibu_tpu_torch.examples.parallel\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -59,6 +62,60 @@ def test_the_scan_covers_the_fastq_slice():
         assert f"ibu_tpu_torch/{name}" in scanned
 
 
+CLI_MODULES = ("__main__.py", "parallel/processor.py", "examples/random.py",
+             "examples/parallel.py")
+
+
+def test_the_scans_cover_the_cli_modules():
+    scanned = {str(p.relative_to(REPO)) for p in PORT_SOURCES}
+    for name in CLI_MODULES:
+        assert f"ibu_tpu_torch/{name}" in scanned
+
+
+def test_host_commands_load_no_jax_torch_or_cuda(tmp_path):
+    """``python -m ibu_tpu_torch info`` in a fresh process, then the other
+    host commands and the host engines of ``count``, ``dedup`` and ``stats``
+    in the same process: they print what they should and load neither the
+    JAX package nor torch, so no CUDA library is mapped and no CUDA context
+    is made."""
+    from ibu_tpu_torch import Header, Writer, make_records
+
+    path = str(tmp_path / "i.ibu")
+    header = Header.new(16, 12)
+    header.set_sorted()
+    with Writer.from_path(path, header) as w:
+        w.write_batch(make_records(np.arange(10), np.arange(10), np.arange(10)))
+    (tmp_path / "allow.txt").write_text("3\n")
+    commands = [
+        ["info", path], ["check", path], ["sort", path, "s.ibu"], ["split", path, "p{}.ibu", "2"],
+        ["merge", "m.ibu", "p0.ibu", "p1.ibu"], ["concat", "c.ibu", "p0.ibu", "p1.ibu"],
+        ["filter", path, "f.ibu", "--barcodes", "allow.txt"], ["lookup", path, "3"],
+        ["subsample", path, "u.ibu", "--n", "4"], ["repair", path, "r.ibu"],
+        # device commands whose engine runs on the host
+        ["count", path, "m"], ["dedup", path, "d.ibu"], ["stats", path, "--engine", "native"],
+    ]
+    code = (
+        "import runpy, sys\n"
+        f"for argv in {commands!r}:\n"
+        "    sys.argv = ['ibu_tpu_torch', *argv]\n"
+        "    try:\n"
+        "        runpy.run_module('ibu_tpu_torch', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (argv, e.code)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('ibu_tpu', 'jax', 'jaxlib', 'torch'))\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "cuda = sorted({l.split()[-1] for l in maps.splitlines() if 'libcuda' in l})\n"
+        "print('loaded', bad, cuda)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert '"records": 10' in lines[0] and lines[-1] == "loaded [] []"
+    assert "OK" in lines and "merged 2 sorted files -> m.ibu" in lines
+    assert (tmp_path / "m.ibu").read_bytes() == (tmp_path / "s.ibu").read_bytes()
+
+
 @pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_neither_ibu_tpu_nor_jax(path):
     bad = [name for name in _imported_roots(path)
@@ -77,7 +134,8 @@ def test_every_port_module_loads_without_ibu_tpu_or_jax():
     for name in ("ibu_tpu_torch.ops.knee", "ibu_tpu_torch.ops.correct",
                  "ibu_tpu_torch.examples", "ibu_tpu_torch.examples.workflow",
                  "ibu_tpu_torch.parallel.select", "ibu_tpu_torch.parallel.host",
-                 "ibu_tpu_torch.examples.fastq_ingest", "ibu_tpu_torch.examples.roundtrip"):
+                 "ibu_tpu_torch.examples.fastq_ingest", "ibu_tpu_torch.examples.roundtrip",
+                 *(f"ibu_tpu_torch.{n.removesuffix('.py').replace('/', '.')}" for n in CLI_MODULES)):
         assert name in modules
     code = (
         "import importlib, sys\n"

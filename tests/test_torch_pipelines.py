@@ -12,6 +12,7 @@ from ibu_tpu.constructs.record import make_records
 from ibu_tpu_torch import pipelines as TPL
 from ibu_tpu_torch.ops import codec as TC
 from tests.test_codec import random_rows
+from tests.test_torch_cli import port_text
 
 CPU = torch.device("cpu")
 
@@ -144,7 +145,7 @@ def test_file_stats_rejects_compressed_and_bad_engine(tmp_path):
         JPL.file_stats(gz, engine="device")
     with pytest.raises(ValueError) as torch_err:
         TPL.file_stats(gz, engine="device", device=CPU)
-    assert str(torch_err.value) == str(jax_err.value)
+    assert str(torch_err.value) == port_text(str(jax_err.value))
     plain = str(FIXTURES / "one_record.ibu")
     with pytest.raises(ValueError) as jax_err:
         JPL.file_stats(plain, engine="quantum")
