@@ -65,7 +65,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     ``torch.profiler`` device time of one more run of ``count_matrix(engine=
     "device")`` and of ``correct_file``, and ``cProfile``'s heaviest host
     functions of one more run of those two and of ``dedup_file``;
-11. drive FASTQ → IBU → FASTQ at 10M reads (bc16/umi12): a sorted 10M-record
+11. drive FASTQ → IBU → FASTQ at 5M reads (bc16/umi12): a sorted 5M-record
     file; both record kernels held exactly against their plain versions on
     that file's records at every batch shape this path and phase 12's
     ``decode`` give them (a 2^20-row export batch, the export's tail batch, a
@@ -85,7 +85,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     the rates they probed; a gzip → gzip leg at 1M reads, and a gzip → zstd
     leg where the ``zstandard`` module is installed (a line says so where it
     is skipped); the file tools on
-    the 10M-record file (``check_file``, ``filter_file`` against a numpy mask,
+    the 5M-record file (``check_file``, ``filter_file`` against a numpy mask,
     ``lookup_barcodes``, ``split_file`` and ``concat_files`` back to the same
     bytes, ``subsample_file``, ``repair_file`` of a copy cut in mid-record,
     ``decode_tsv_block`` against a per-line statement); and the
@@ -103,14 +103,35 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     text; ``export-fastq``, ``ingest-fastq``, ``decode`` (its first and last
     1M lines held against ``decode_tsv_block``), ``check --json``,
     ``filter``, ``lookup``, ``split``, ``merge``, ``concat``, ``subsample``
-    and ``repair`` on the sorted 10M-record file, each equal to phase 11's
+    and ``repair`` on the sorted 5M-record file, each equal to phase 11's
     results; ``decode``, ``export-fastq`` and ``ingest-fastq`` once more
     through ``ibu_tpu_torch.__main__.main`` under ``IBU_AUTO_ENGINE=device``
     with the codec kernels' launch counters zeroed before each: one
-    ``decode_records`` launch per ``Reader`` batch, 10 and 50; and, beside
-    the rest, ``stats --engine device`` with ``CUDA_VISIBLE_DEVICES=""``,
+    ``decode_records`` launch per ``Reader`` batch, and one per export and
+    ingest batch; and, beside the rest, ``stats --engine device`` with ``CUDA_VISIBLE_DEVICES=""``,
     which must exit 2 with one line on stderr and nothing on stdout. Each
-    command's wall is printed.
+    command's wall is printed;
+13. drive the cohort layer (:mod:`ibu_tpu_torch.parallel.multihost`,
+    :mod:`ibu_tpu_torch.parallel.sort`, :mod:`ibu_tpu_torch.data`) on an
+    unsorted file of 10M bc16/umi12 records drawn from phase 10's called
+    cells (random UMIs, indices under 20,000, made from the seed): a world of
+    one on NCCL in this process (``sharded_sort_records``, ``sort_file_mesh``,
+    ``multihost_sort_file`` with the mesh and host engines, each byte-equal to
+    ``native.sort_file``; ``multihost_file_stats`` and
+    ``multihost_barcode_histogram`` equal to the native and host engines),
+    the group destroyed after; two ranks on the one card, one launch of this
+    script as the rank workers, each running ``sort --engine mesh``, ``sort
+    --engine pod`` (``IBU_POD_SORT_ENGINE=host``), ``stats`` and ``histogram
+    --top 20`` through ``ibu_tpu_torch.__main__.main`` with ``--distributed``:
+    rank 0 prints what one process prints, rank 1 nothing, the files equal
+    ``native.sort_file``'s, the exchange backend (Gloo: NCCL refuses two ranks
+    on one card) and each rank's share of the mesh sort logged, then a failure
+    injected into rank 1's run sort must end both ranks; and ``RecordLoader``
+    at 2^20-record batches (sequential, ``"global"``, two ``"blocks"``
+    epochs): every batch's checksum on the card equal to ``host_batches``',
+    each epoch an exact permutation, the two epochs different, two shards an
+    exact union, and the card's busy share of one profiled epoch (this leg
+    runs first). Each leg's wall is printed.
 
 Phases 1-10 name ``engine="device"`` where they assert launches; only
 ``decode_file``, which takes no engine, runs under a scoped
@@ -182,6 +203,7 @@ N_MOLECULES = 1_000_000
 N_LIE = 1_000_000
 N_SORT_LAB = 1 << 24  # the sort lab's default
 N_READS = 10_000_000  # reads of the workflow phase
+N_COHORT = 10_000_000  # records of the cohort phase
 CELLS = 3_000  # planted cell barcodes of the workflow phase
 GENE_INDEX = 20_000  # the index pool: the size of a human gene annotation
 ERROR_RATE = 0.2  # reads whose barcode carries one substituted base
@@ -190,7 +212,7 @@ ERROR_RATE = 0.2  # reads whose barcode carries one substituted base
 #: shard), and about 0.9M distinct (barcode, gene) pairs per count batch
 WF_BATCH = 1 << 20
 WF_MAX_PAIRS = 1 << 22
-N_FASTQ = 10_000_000  # reads of the FASTQ phase
+N_FASTQ = 5_000_000  # reads of the FASTQ phase (5M keeps the whole script under 7 minutes)
 N_FASTQ_GZIP = 1_000_000  # reads of its gzip leg, and the slice held against numpy
 EXPORT_BATCH = 1 << 20  # export_fastq's default batch
 INGEST_BATCH = 200_000  # ingest_fastq's default batch
@@ -1167,7 +1189,7 @@ def fastq_phase(card, n: int, n_small: int, workdir: Path) -> tuple[dict, dict]:
 
 
 def file_tools(src: str, records: np.ndarray, n_small: int, workdir: Path) -> dict:
-    """The host file tools on the 10M-record sorted file. Their outputs stay
+    """The host file tools on phase 11's sorted file. Their outputs stay
     for phase 12; returns their paths and results."""
     n = len(records)
     rng = np.random.default_rng(SEED + 12)
@@ -1302,7 +1324,7 @@ def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
     proc = run_cli(["info", tiny], walls, "info 1 record")
     cli_ok(proc, "info 1 record")
 
-    # the workflow commands on phase 10's raw 10M-read file
+    # the workflow commands on phase 10's raw file
     path = out("sorted.ibu")
     cli_ok(run_cli(["sort", raw, path], walls, "sort native"), "sort", f"sorted {raw} -> {path}\n")
     same_file(path, raw, "sort of the sorted raw file")  # native.sort_file gives it back
@@ -1350,7 +1372,7 @@ def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
             f"count --engine device refuses with the reference's text: {err!r}")
         log("cli: count --engine device refused past max_pairs=1048576, exit 1, as the reference")
 
-    # the FASTQ commands and the file tools on phase 11's sorted 10M-record file
+    # the FASTQ commands and the file tools on phase 11's sorted file
     fastq, back = out("a.fastq"), out("back.ibu")
     cli_ok(run_cli(["export-fastq", src, fastq], walls, "export-fastq"), "export-fastq")
     require(filecmp.cmp(fastq, fq["fastq"], shallow=False), "export-fastq equals export_fastq")
@@ -1444,6 +1466,287 @@ def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
     return cli_launches
 
 
+COHORT_WORLD = 2  # ranks of phase 13's cohort on the one card
+LOADER_BATCH = 1 << 20
+
+
+def cohort_commands(src: str, workdir: Path) -> list[tuple[str, list[str], str | None]]:
+    """Phase 13's cohort commands: ``(key, argv, IBU_POD_SORT_ENGINE)``."""
+    return [
+        ("sort mesh", ["sort", src, str(workdir / "mesh.ibu"), "--engine", "mesh"], None),
+        ("sort pod host", ["sort", src, str(workdir / "pod.ibu"), "--engine", "pod"], "host"),
+        ("stats", ["stats", src], None),
+        ("histogram", ["histogram", src, "--top", "20"], None),
+    ]
+
+
+def cohort_rank(rank: int, world: int, src: str, workdir: Path, device: str | None) -> int:
+    """One rank of phase 13's cohort: every cohort command through
+    ``ibu_tpu_torch.__main__.main`` with ``--distributed``, then the run sort
+    failing on rank 1. Writes what each printed, its wall, the exchange
+    backend and this rank's share of the mesh sort to ``rank{rank}.json``."""
+    import io
+
+    from ibu_tpu_torch.__main__ import main as cli_main
+    from ibu_tpu_torch.parallel import multihost as MH
+    from ibu_tpu_torch.parallel import sort as MS
+
+    flags = ["--distributed", "--coordinator", f"file://{workdir / 'store'}",
+             "--num-processes", str(world), "--process-id", str(rank)]
+    if device:
+        flags += ["--device", device]
+    shares = []
+    inner = MS._sample_sort
+
+    def spy(*args, **kwargs):
+        run, matrix = inner(*args, **kwargs)
+        shares.append(int(matrix[:, rank].sum()))
+        return run, matrix
+
+    MS._sample_sort = spy
+    result: dict = {}
+    real_runs = native.sort_chunks_range
+
+    def boom(*args, **kwargs):
+        raise OSError(f"injected failure on rank {rank}")
+
+    for key, argv, pod_engine in cohort_commands(src, workdir) + [
+            ("fail", ["sort", src, str(workdir / "fail.ibu"), "--engine", "pod"], "host")]:
+        if key == "fail" and rank == 1:
+            native.sort_chunks_range = boom
+        os.environ.pop("IBU_POD_SORT_ENGINE", None)
+        if pod_engine:
+            os.environ["IBU_POD_SORT_ENGINE"] = pod_engine
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(argv + flags)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        result[key] = {"rc": rc, "out": out.getvalue(), "err": err.getvalue(),
+                       "wall": time.perf_counter() - t0}
+        native.sort_chunks_range = real_runs
+    result["backend"] = MH.exchange_backend(device)
+    result["share"] = shares
+    (workdir / f"rank{rank}.json").write_text(json.dumps(result))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def cohort_of_one(card, src: str, want: str, workdir: Path) -> None:
+    """Phase 13, leg 1: a world of one on NCCL, in this process."""
+    import torch.distributed as dist
+
+    from ibu_tpu_torch.parallel import multihost as MH
+    from ibu_tpu_torch.parallel import sort as MS
+
+    records = np.asarray(MmapReader(src).records)
+    n = len(records)
+    wanted = np.asarray(MmapReader(want).records)
+    dist.init_process_group("nccl", init_method=f"file://{workdir / 'store1'}",
+                            world_size=1, rank=0)
+    try:
+        backend = MH.exchange_backend(card)
+        log(f"cohort: world of one: exchange backend {backend}")
+        require(backend == "nccl", "a world of one with its own card exchanges over NCCL")
+        got = wall(f"cohort sharded_sort_records {n} (world 1, NCCL)", lambda: MS.sharded_sort_records(
+            records, device=card, bc_len=BC_LEN, umi_len=UMI_LEN, index_bits=32))
+        require(got.tobytes() == wanted.tobytes(), "sharded_sort_records equals native.sort_file")
+        del got
+        for key, fn in (
+            ("sort_file_mesh", lambda out: MS.sort_file_mesh(src, out, device=card)),
+            ("multihost_sort_file mesh",
+             lambda out: MH.multihost_sort_file(src, out, device=card, engine="mesh")),
+            ("multihost_sort_file host",
+             lambda out: MH.multihost_sort_file(src, out, device=card, engine="host")),
+        ):
+            out = str(workdir / "one.ibu")
+            wall(f"cohort {key} {n} (world 1)", lambda: fn(out))
+            same_file(out, want, f"cohort {key}")
+        stats = wall(f"cohort multihost_file_stats {n} (world 1)",
+                     lambda: MH.multihost_file_stats(src, device=card))
+        native_stats = PL.file_stats(src, engine="native")
+        native_stats.pop("engine", None)
+        require(stats == native_stats, f"multihost_file_stats equals the native engine: {stats}")
+        hist = wall(f"cohort multihost_barcode_histogram {n} (world 1)",
+                    lambda: MH.multihost_barcode_histogram(src, device=card))
+        keys, counts = PL.barcode_counts(src, engine="host")
+        require(hist == dict(zip(keys.tolist(), counts.tolist())),
+                "multihost_barcode_histogram equals the host engine")
+    finally:
+        dist.destroy_process_group()
+    require(MH.process_count() == 1, "the group of one is gone after its leg")
+
+
+def cohort_of_two(card, src: str, want: str, workdir: Path) -> None:
+    """Phase 13, leg 2: two ranks on the one card, one launch of two
+    processes (this script as the rank worker), every cohort command equal to
+    the same command in one process. On the card the commands name no
+    device, as a user types them."""
+    import io
+
+    from ibu_tpu_torch.__main__ import main as cli_main
+
+    device = [] if card.type == "cuda" else ["--device", "cpu"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--cohort-rank", str(r), "--cohort-world",
+         str(COHORT_WORLD), "--cohort-src", src, "--cohort-dir", str(workdir),
+         *(["--cohort-device", "cpu"] if device else [])],
+        cwd=ROOT, env=cli_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(COHORT_WORLD)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"wall: cohort launch of {COHORT_WORLD} ranks: {time.perf_counter() - t0:.3f} s")
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines()[-20:]:
+            log(f"cohort rank {r}: {line}")
+        require(p.returncode == 0, f"cohort rank {r} exits 0")
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(COHORT_WORLD)]
+    for r, res in enumerate(ranks):
+        log(f"cohort rank {r}: exchange backend {res['backend']}; share of the mesh sort "
+            f"{res['share']} records; walls " + ", ".join(
+                f"{k} {v['wall']:.3f} s" for k, v in res.items() if isinstance(v, dict)))
+        require(res["backend"] == "gloo", "two ranks on one card exchange over Gloo")
+    require(sum(ranks[r]["share"][0] for r in range(COHORT_WORLD)) == len(MmapReader(src)),
+            "the ranks' shares add up to the file")
+
+    for key, argv, pod_engine in cohort_commands(src, workdir):
+        os.environ.pop("IBU_POD_SORT_ENGINE", None)
+        if pod_engine:
+            os.environ["IBU_POD_SORT_ENGINE"] = pod_engine
+        single = list(argv) + device
+        if argv[0] == "sort":  # its own output file
+            single[2] = argv[2].replace(".ibu", "_single.ibu")
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(single)
+        log(f"wall: cohort single process {key}: {time.perf_counter() - t0:.3f} s")
+        os.environ.pop("IBU_POD_SORT_ENGINE", None)
+        rank0, rank1 = ranks[0][key], ranks[1][key]
+        want_out = out.getvalue().replace("_single.ibu", ".ibu")
+        require(rc == rank0["rc"] == rank1["rc"] == 0 and rank0["out"] == want_out
+                and rank1["out"] == "", f"cohort {key}: rank 0 prints what one process prints "
+                f"({rank0['out'][:200]!r} against {want_out[:200]!r}), rank 1 nothing")
+        if key == "histogram":
+            tail = [ln for ln in rank0["err"].splitlines() if ln.startswith("# ")]
+            require(tail == [ln for ln in err.getvalue().splitlines() if ln.startswith("# ")],
+                    "cohort histogram: the same totals line")
+        if argv[0] == "sort":
+            same_file(single[2], want, f"cohort {key} single process")
+            same_file(argv[2], want, f"cohort {key}")
+    fail = [res["fail"] for res in ranks]
+    log(f"cohort: injected failure on rank 1: exits {[f['rc'] for f in fail]}, "
+        f"last lines {[f['err'].splitlines()[-1:] for f in fail]}")
+    require(all(f["rc"] != 0 for f in fail) and not (workdir / "fail.ibu").exists(),
+            "a failure on rank 1 ends both ranks, and no output is left")
+
+
+def loader_leg(card, src: str) -> None:
+    """Phase 13, leg 3: ``RecordLoader`` on the card at 2^20-record batches."""
+    from ibu_tpu_torch.data import RecordLoader
+
+    reader = MmapReader(src)
+    n = len(reader)
+    file_sums = S.checksum_records_np(np.asarray(reader.records))
+
+    def device_sums(batches):
+        sums = [S.field_sums(b) for b in batches]
+        return torch.stack(sums).cpu().numpy() if sums else np.zeros((0, 3), np.int64)
+
+    def host_sums(batches):
+        return np.array([[int(s) for s in np.asarray(b).view(np.int64).reshape(-1, 3).sum(
+            axis=0)] for b in batches], dtype=np.int64)
+
+    firsts = []
+    for shuffle, epochs in ((False, 1), ("global", 1), ("blocks", 2)):
+        loader = RecordLoader(src, LOADER_BATCH, shuffle=shuffle, seed=SEED,
+                              drop_remainder=False, device=card)
+        for epoch in range(epochs):
+            out = {}
+
+            def run():
+                out["sums"] = device_sums(loader.epoch(epoch))
+
+            # the last epoch also gives the card's busy share (one profiled run)
+            profiled = shuffle == "blocks" and epoch == epochs - 1
+            t0 = time.perf_counter()
+            ms = device_ms(run, [()], iters=1, warm=False) if profiled else run()
+            dt = time.perf_counter() - t0
+            got = out["sums"]
+            log(f"wall: loader {shuffle or 'sequential'} epoch {epoch}: {dt:.3f} s "
+                f"({n / dt / 1e6:.1f} M records/s, {len(got)} batches)")
+            if profiled:
+                note = "not measured" if ms is None else f"{ms:.3f} ms ({ms / (dt * 1e3):.2%} busy)"
+                log(f"loader profile: blocks epoch {epoch}: device {note}, under the profiler")
+            want = host_sums(loader.host_batches(epoch))
+            require(np.array_equal(got, want), f"loader {shuffle} epoch {epoch}: every batch's "
+                    "checksum on the card equals host_batches'")
+            total = tuple(int(v) & ((1 << 64) - 1) for v in got.sum(axis=0, dtype=np.int64))
+            require(len(got) == -(-n // LOADER_BATCH) and total == file_sums,
+                    f"loader {shuffle} epoch {epoch} is a permutation of the file (sums exact)")
+            if shuffle == "blocks":
+                firsts.append(next(iter(loader.host_batches(epoch)))["index"].copy())
+    require(not np.array_equal(firsts[0], firsts[1]), "the two blocks epochs differ")
+
+    parts = []
+    for k in range(2):
+        loader = RecordLoader(src, LOADER_BATCH, shuffle="blocks", seed=SEED, shard_index=k,
+                              shard_count=2, drop_remainder=False, device=card)
+        parts.append(torch.cat(list(loader.epoch(0))))
+    union = S.sort_records(torch.cat(parts), check=False)
+    whole = S.sort_records(records_to_tensor(np.asarray(reader.records), card), check=False)
+    require(sum(len(p) for p in parts) == n and torch.equal(union, whole),
+            "shard_count=2 gives a disjoint, exact union")
+    del parts, union, whole
+
+
+def cohort_records(cells: str, path: str) -> None:
+    """An unsorted file of :data:`N_COHORT` records: barcodes drawn from the
+    called cells, 12-base UMIs and gene indices at random."""
+    rng = np.random.default_rng(SEED + 13)
+    with open(cells) as f:
+        pool = C.encode_seqs([line.strip() for line in f if line.strip()])
+    write_ibu(Path(path), make_records(
+        pool[rng.integers(0, len(pool), N_COHORT)],
+        rng.integers(0, 1 << (2 * UMI_LEN), N_COHORT, dtype=np.uint64),
+        rng.integers(0, GENE_INDEX, N_COHORT, dtype=np.uint64)))
+
+
+def cohort_phase(card, wf: dict, workdir: Path) -> None:
+    """Phase 13: the cohort layer at 10M bc16/umi12 records drawn from phase
+    10's called cells: a world of one on NCCL, two ranks on the one card
+    through the CLI, and the loader on the card."""
+    t_phase = time.perf_counter()
+    workdir = workdir.resolve()  # the file:// rendezvous needs an absolute path
+    src = str(workdir / "cohort.ibu")
+    wall(f"cohort generate {N_COHORT} records", lambda: cohort_records(wf["cells"], src))
+    want = str(workdir / "native.ibu")
+    wall("cohort native.sort_file (the reference bytes)", lambda: native.sort_file(src, want))
+    # leg 3 first: its profile is then taken before any group or rank exists
+    t0 = time.perf_counter()
+    loader_leg(card, src)
+    log(f"cohort: leg 3 (RecordLoader) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cohort_of_one(card, src, want, workdir)
+    log(f"cohort: leg 1 (world of one, NCCL) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cohort_of_two(card, src, want, workdir)
+    log(f"cohort: leg 2 (two ranks on one card) took {time.perf_counter() - t0:.1f} s")
+    os.unlink(want)
+    os.unlink(src)
+    log(f"cohort: phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1491,7 +1794,7 @@ def main() -> int:
     kernels += labs_phase(card, N_MAIN)
     kernels += sort_lab_phase(card, N_SORT_LAB)
     # phases 10 and 11 keep their files for phase 12, which reads them
-    dirs = {name: workdir / name for name in ("workflow", "fastq", "cli")}
+    dirs = {name: workdir / name for name in ("workflow", "fastq", "cli", "cohort")}
     try:
         for d in dirs.values():
             d.mkdir(parents=True, exist_ok=True)
@@ -1502,6 +1805,8 @@ def main() -> int:
         log(f"launches on the FASTQ path (device legs): {fastq_launches}")
         log(f"elapsed before the CLI phase: {time.perf_counter() - t_start:.1f} s")
         cli_launches = cli_phase(card, wf_files, fq_files, dirs["cli"])
+        log(f"elapsed before the cohort phase: {time.perf_counter() - t_start:.1f} s")
+        cohort_phase(card, wf_files, dirs["cohort"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         os.environ.pop("IBU_AUTO_ENGINE", None)
@@ -1526,4 +1831,16 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--cohort-rank" in sys.argv:  # one rank of phase 13's cohort
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        for flag in ("--cohort-rank", "--cohort-world"):
+            ap.add_argument(flag, type=int, required=True)
+        ap.add_argument("--cohort-src", required=True)
+        ap.add_argument("--cohort-dir", type=Path, required=True)
+        ap.add_argument("--cohort-device", default=None)
+        a = ap.parse_args()
+        sys.exit(cohort_rank(a.cohort_rank, a.cohort_world, a.cohort_src, a.cohort_dir,
+                             a.cohort_device))
     sys.exit(main())

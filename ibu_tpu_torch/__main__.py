@@ -34,10 +34,23 @@ command prints one line on stderr and exits 2: it never runs on the CPU
 unasked. ``sort`` uses the native external merge
 sort unless given ``--engine device``.
 
-Not here yet: the pod-wide options of the JAX package's CLI (``--distributed``,
-``--coordinator``, ``--num-processes``, ``--process-id``) and ``sort --engine
-mesh|pod``, which the port of the multihost engines adds; until then the
-parser refuses them (exit code 2).
+``stats``, ``histogram`` and ``sort --engine mesh|pod`` also run across a
+``torch.distributed`` cohort, one rank per process and one card per rank
+(:mod:`ibu_tpu_torch.parallel.multihost`): launch the same command as every
+rank with ``--distributed`` and the work shards across the ranks::
+
+    # 2 ranks (on host A, or on one host with two cards)
+    python -m ibu_tpu_torch stats data.ibu --distributed \\
+        --coordinator hostA:9876 --num-processes 2 --process-id 0  # rank 0
+    python -m ibu_tpu_torch stats data.ibu --distributed \\
+        --coordinator hostA:9876 --num-processes 2 --process-id 1  # rank 1
+
+``--coordinator`` also takes any ``torch.distributed`` init URL
+(``file:///shared/path``). Results print once (rank 0); ``sort`` writes the shared
+output file cooperatively (every rank pwrites its own byte range). ``filter``,
+``count``, ``correct``, ``dedup``, ``ingest-fastq`` and ``export-fastq`` do not
+run across a cohort yet: the parser refuses ``--distributed`` and its three
+flags there (exit code 2).
 """
 
 from __future__ import annotations
@@ -47,6 +60,37 @@ import json
 import sys
 
 from ibu_tpu_torch.errors import NO_CARD_HINT, IbuError, NoCardError
+
+
+def _add_distributed_args(p) -> None:
+    g = p.add_argument_group(
+        "distributed",
+        "run as one rank of a torch.distributed cohort (launch the same "
+        "command as every rank; results print on rank 0)",
+    )
+    g.add_argument("--distributed", action="store_true",
+                   help="join the cohort before running (pin it with the three "
+                        "flags below)")
+    g.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rendezvous address (rank 0's host), or an init URL "
+                        "such as file:///shared/path")
+    g.add_argument("--num-processes", type=int, default=None)
+    g.add_argument("--process-id", type=int, default=None)
+
+
+def _maybe_init_distributed(args) -> None:
+    """Join the cohort when ``--distributed`` was given (no-op when this
+    process already is in one); callers print results on rank 0 only."""
+    if args.distributed:
+        from ibu_tpu_torch.parallel.multihost import init_distributed
+
+        init_distributed(args.coordinator, args.num_processes, args.process_id)
+
+
+def _is_rank0() -> bool:
+    from ibu_tpu_torch.parallel.multihost import process_index
+
+    return process_index() == 0
 
 
 def _add_device_arg(p) -> None:
@@ -102,6 +146,23 @@ def cmd_info(args) -> int:
 
 def cmd_stats(args) -> int:
     kind = _sniff(args.path)
+    if args.distributed:
+        if args.engine in ("native", "host"):
+            print(f"--distributed shards over the cohort's cards; drop "
+                  f"--engine {args.engine}", file=sys.stderr)
+            return 2
+        if kind is not None:
+            print(f"{args.path} is {kind}-compressed; --distributed needs "
+                  "per-host random access — decompress first",
+                  file=sys.stderr)
+            return 1
+        _maybe_init_distributed(args)
+        from ibu_tpu_torch.parallel.multihost import multihost_file_stats
+
+        stats = multihost_file_stats(args.path, device=args.device)
+        if _is_rank0():
+            print(json.dumps(stats))
+        return 0
     if kind is not None:
         if args.engine == "native":
             print(f"{args.path} is {kind}-compressed; the native engine "
@@ -139,14 +200,33 @@ def cmd_sort(args) -> int:
     from ibu_tpu_torch.pipelines import _require_plain
 
     _require_plain(args.input, "sort")
-    if args.engine == "device":
-        if args.chunk_records or args.threads:
+    if args.distributed and args.engine not in ("mesh", "pod"):
+        print("--distributed requires --engine mesh (the pod-wide device "
+              "sample sort) or --engine pod (auto: mesh on CUDA cards, shared-FS "
+              "native external sort elsewhere); native/device sorts are "
+              "single-host", file=sys.stderr)
+        return 2
+    if args.engine in ("device", "mesh", "pod"):
+        if (args.chunk_records or args.threads) and args.engine != "pod":
             print("--chunk-records/--threads only apply to --engine native "
                   "(the device sorts are in-memory)", file=sys.stderr)
             return 2
-        from ibu_tpu_torch.pipelines import sort_file_device
+        if args.engine in ("mesh", "pod"):
+            _maybe_init_distributed(args)
+            from ibu_tpu_torch.parallel.multihost import multihost_sort_file
 
-        sort_file_device(args.input, args.output, device=args.device)
+            multihost_sort_file(
+                args.input, args.output, device=args.device,
+                engine="mesh" if args.engine == "mesh" else "auto",
+                chunk_records=args.chunk_records,
+                nthreads=args.threads,
+            )
+            if not _is_rank0():
+                return 0
+        else:
+            from ibu_tpu_torch.pipelines import sort_file_device
+
+            sort_file_device(args.input, args.output, device=args.device)
         print(f"sorted {args.input} -> {args.output} ({args.engine})")
         return 0
     native = _native_or_error()
@@ -162,56 +242,79 @@ def cmd_histogram(args) -> int:
     from ibu_tpu_torch import MmapReader
 
     kind = _sniff(args.path)
-    if kind is None:
-        from ibu_tpu_torch.parallel.device import record_batches_from_mmap
+    if args.distributed:
+        if args.engine == "host":
+            print("--distributed shards over the cohort's cards; drop "
+                  "--engine host", file=sys.stderr)
+            return 2
+        if kind is not None:
+            print(f"{args.path} is {kind}-compressed; --distributed needs "
+                  "per-host random access — decompress first",
+                  file=sys.stderr)
+            return 1
+        _maybe_init_distributed(args)
+        from ibu_tpu_torch.parallel.multihost import multihost_barcode_histogram
 
-        reader = MmapReader(args.path)
-        hdr = reader.header()
-        batches = record_batches_from_mmap(reader)
-    else:  # gzip/zstd: stream decoded batches into the same engines
-        from ibu_tpu_torch import Reader
-
-        r = Reader.from_path(args.path)
-        hdr = r.header()
-        batches = r.batches()
-    engine = args.engine
-    if engine == "host" and args.device_table:
-        print("--device-table is a device-engine option; drop it or "
-              "use --engine device", file=sys.stderr)
-        return 2
-    if engine == "auto" and args.device_table:
-        # an explicit device-table capacity chooses the device table
-        # engine; no probe
-        engine = "device"
-    elif engine == "auto" and kind is not None:
-        # a compressed stream is decompression-bound on the host anyway
-        engine = "host"
-    if engine == "auto":
-        from ibu_tpu_torch.parallel.select import auto_device_or_host
-
-        engine = auto_device_or_host(device=args.device)
-    if engine == "host":
-        from ibu_tpu_torch.pipelines import host_stream_histogram
-
-        hist = host_stream_histogram(batches)
-    elif args.device_table:
-        from ibu_tpu_torch.parallel.device import DeviceHistogram
-
-        # sorted inputs (header-claimed, checked on the device) skip the
-        # per-batch sort
-        hist = DeviceHistogram(
-            capacity=args.device_table,
-            max_uniques_per_shard=args.max_uniques,
-            assume_sorted=hdr.sorted(),
+        hist = multihost_barcode_histogram(
+            args.path,
             device=args.device,
-        ).run(batches)
-    else:
-        from ibu_tpu_torch.parallel.device import sharded_barcode_histogram
-
-        hist = sharded_barcode_histogram(
-            batches, device=args.device, max_uniques_per_shard=args.max_uniques,
-            sorted_in=hdr.sorted(),
+            capacity=args.device_table or (1 << 20),
+            max_uniques_per_shard=args.max_uniques,
         )
+        if not _is_rank0():
+            return 0
+        hdr = MmapReader(args.path).header()
+    else:
+        if kind is None:
+            from ibu_tpu_torch.parallel.device import record_batches_from_mmap
+
+            reader = MmapReader(args.path)
+            hdr = reader.header()
+            batches = record_batches_from_mmap(reader)
+        else:  # gzip/zstd: stream decoded batches into the same engines
+            from ibu_tpu_torch import Reader
+
+            r = Reader.from_path(args.path)
+            hdr = r.header()
+            batches = r.batches()
+        engine = args.engine
+        if engine == "host" and args.device_table:
+            print("--device-table is a device-engine option; drop it or "
+                  "use --engine device", file=sys.stderr)
+            return 2
+        if engine == "auto" and args.device_table:
+            # an explicit device-table capacity chooses the device table
+            # engine; no probe
+            engine = "device"
+        elif engine == "auto" and kind is not None:
+            # a compressed stream is decompression-bound on the host anyway
+            engine = "host"
+        if engine == "auto":
+            from ibu_tpu_torch.parallel.select import auto_device_or_host
+
+            engine = auto_device_or_host(device=args.device)
+        if engine == "host":
+            from ibu_tpu_torch.pipelines import host_stream_histogram
+
+            hist = host_stream_histogram(batches)
+        elif args.device_table:
+            from ibu_tpu_torch.parallel.device import DeviceHistogram
+
+            # sorted inputs (header-claimed, checked on the device) skip the
+            # per-batch sort
+            hist = DeviceHistogram(
+                capacity=args.device_table,
+                max_uniques_per_shard=args.max_uniques,
+                assume_sorted=hdr.sorted(),
+                device=args.device,
+            ).run(batches)
+        else:
+            from ibu_tpu_torch.parallel.device import sharded_barcode_histogram
+
+            hist = sharded_barcode_histogram(
+                batches, device=args.device, max_uniques_per_shard=args.max_uniques,
+                sorted_in=hdr.sorted(),
+            )
     import numpy as np
 
     from ibu_tpu_torch.ops import codec as C
@@ -511,18 +614,25 @@ def main(argv=None) -> int:
              "native: threaded host engine; host: single-thread numpy",
     )
     _add_device_arg(p)
+    _add_distributed_args(p)
     p.set_defaults(fn=cmd_stats)
 
     p = sub.add_parser("sort", help="sorted rewrite (native external merge "
                                     "sort, or in-memory device sort)")
     p.add_argument("input")
     p.add_argument("output")
-    p.add_argument("--engine", choices=("native", "device"), default="native",
+    p.add_argument("--engine", choices=("native", "device", "mesh", "pod"),
+                   default="native",
                    help="native: out-of-core external merge sort; device: "
-                        "in-memory sort on the CUDA card (header-hinted)")
+                        "in-memory sort on the CUDA card (header-hinted); "
+                        "mesh: sample sort over the cohort's cards (files up "
+                        "to their total memory); pod (with --distributed): "
+                        "auto: mesh on CUDA cards that hold the file, "
+                        "shared-FS native external sample sort elsewhere")
     p.add_argument("--chunk-records", type=int, default=0)
     p.add_argument("--threads", type=int, default=0)
     _add_device_arg(p)
+    _add_distributed_args(p)
     p.set_defaults(fn=cmd_sort)
 
     p = sub.add_parser("histogram", help="per-barcode counts")
@@ -538,8 +648,11 @@ def main(argv=None) -> int:
                    help="per-batch unique-barcode capacity")
     p.add_argument("--device-table", type=int, default=0, metavar="CAP",
                    help="merge batches on the device in a CAP-entry table "
-                        "(bounded barcode spaces; default: host-dict merge)")
+                        "(bounded barcode spaces; default: host-dict merge; "
+                        "--distributed always uses the device table, "
+                        "spilling exactly past CAP)")
     _add_device_arg(p)
+    _add_distributed_args(p)
     p.set_defaults(fn=cmd_histogram)
 
     p = sub.add_parser("decode", help="records → TSV (barcode, umi, index)")

@@ -1,14 +1,14 @@
 // Host runtime of ibu_tpu_torch: the bulk and threaded file I/O, the
 // threaded field-sum engine, the host 2-bit codec, the FASTQ chunk parser,
-// the record sort, the out-of-core external merge sort and the key-interval
-// merges of sorted runs, with a plain C interface loaded by ctypes
+// the record sort, the out-of-core external merge sort, the sorted runs of a
+// record range and the key-interval merges of sorted runs, with a plain C interface loaded by ctypes
 // (ibu_tpu_torch/native.py).
 //
 // A copy of the functions of ibu_tpu/native/ibu_native.cpp that the port
 // uses: ibu_write_file, ibu_read_file, ibu_pread_parallel,
 // ibu_pwrite_parallel, ibu_file_size, ibu_checksum_parallel, ibu_pack_2bit /
 // ibu_unpack_2bit with their threaded _mt forms, ibu_fastq_gather,
-// ibu_sort_records, ibu_sort_file, ibu_run_interval,
+// ibu_sort_records, ibu_sort_file, ibu_sort_chunks_range, ibu_run_interval,
 // ibu_merge_runs_interval with its _mt form, and ibu_merge_files. Built with g++ (not nvcc) into its own library, so it
 // builds and runs where there is no CUDA toolkit. Every function returns 0
 // on success or a negative errno-style code.
@@ -526,6 +526,73 @@ cleanup:
   for (auto& p : run_paths) if (!p.empty()) ::unlink(p.c_str());
   if (rc != 0) ::unlink(out_path);  // no partial "sorted" file on failure
   return rc;
+}
+
+// ---------------------------------------------------------------------------
+// sorted runs of a record range: the per-rank stage of the cohort host sort
+// ---------------------------------------------------------------------------
+
+// Phase 1 of ibu_sort_file generalized to a record RANGE [start_rec,
+// start_rec + n_rec) of in_path. Runs are written as "<run_prefix>.runK"
+// (headerless, sorted). Returns the number of runs (>= 0) or -errno.
+int ibu_sort_chunks_range(const char* in_path, const char* run_prefix,
+                          uint64_t start_rec, uint64_t n_rec,
+                          uint64_t chunk_records, int nthreads) {
+  if (chunk_records == 0) chunk_records = 32ull * 1024 * 1024 / 24;
+  int in_fd = ::open(in_path, O_RDONLY);
+  if (in_fd < 0) return -errno;
+  struct stat st;
+  if (::fstat(in_fd, &st) != 0) { int e = errno; ::close(in_fd); return -e; }
+  uint64_t size = static_cast<uint64_t>(st.st_size);
+  if (size < 32 || (size - 32) % RECORD_SIZE != 0 ||
+      (start_rec + n_rec) * RECORD_SIZE > size - 32) {
+    ::close(in_fd);
+    return -EINVAL;
+  }
+  if (nthreads <= 0) nthreads = std::thread::hardware_concurrency();
+  nthreads = std::max(1, std::min(nthreads, 64));
+  uint64_t n_runs = n_rec == 0 ? 0 : (n_rec + chunk_records - 1) / chunk_records;
+  std::vector<std::string> run_paths(n_runs);
+  std::atomic<int> failure(0);
+  {
+    std::vector<std::thread> workers;
+    std::atomic<uint64_t> next_run(0);
+    for (int t = 0; t < nthreads; ++t) {
+      workers.emplace_back([&]() {
+        std::vector<IbuRecord> chunk;
+        for (;;) {
+          uint64_t r = next_run.fetch_add(1);
+          if (r >= n_runs || failure.load()) return;
+          uint64_t start = start_rec + r * chunk_records;
+          uint64_t count = std::min(chunk_records, start_rec + n_rec - start);
+          chunk.resize(count);
+          uint64_t bytes = count * sizeof(IbuRecord);
+          uint64_t got = 0;
+          uint8_t* dst = reinterpret_cast<uint8_t*>(chunk.data());
+          while (got < bytes) {
+            ssize_t rd = ::pread(in_fd, dst + got, bytes - got,
+                                 static_cast<off_t>(32 + start * 24 + got));
+            if (rd <= 0) { failure.store(EIO); return; }
+            got += static_cast<uint64_t>(rd);
+          }
+          std::sort(chunk.begin(), chunk.end(), record_less);
+          run_paths[r] = std::string(run_prefix) + ".run" + std::to_string(r);
+          int rc = ibu_write_file(
+              run_paths[r].c_str(), nullptr,
+              reinterpret_cast<const uint8_t*>(chunk.data()),
+              count * sizeof(IbuRecord));
+          if (rc != 0) { failure.store(-rc); return; }
+        }
+      });
+    }
+    for (auto& w : workers) w.join();
+  }
+  ::close(in_fd);
+  if (failure.load()) {
+    for (auto& p : run_paths) if (!p.empty()) ::unlink(p.c_str());
+    return -failure.load();
+  }
+  return static_cast<int>(n_runs);
 }
 
 // ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ The port's copy of the parts of :mod:`ibu_tpu.native` it uses:
 :func:`write_file`, :func:`read_records`, :func:`pread_parallel`,
 :func:`pwrite_parallel`, :func:`file_size`, :func:`checksum_parallel`,
 :func:`pack_2bit`, :func:`unpack_2bit`, :func:`fastq_gather`,
-:func:`sort_records`, :func:`sort_file`, :func:`run_interval`,
+:func:`sort_records`, :func:`sort_file`, :func:`sort_chunks_range`, :func:`run_interval`,
 :func:`merge_runs_interval` and :func:`merge_files`, on
 ``csrc/host_native.cpp``. ``g++`` builds the source at first use into
 ``build/ibu_tpu_torch/libibu_host_<hash>.so`` beside the package, named by a
@@ -106,6 +106,8 @@ def _load() -> ctypes.CDLL | None:
     lib.ibu_sort_records.restype = i32
     lib.ibu_sort_file.argtypes = [ctypes.c_char_p, ctypes.c_char_p, u64, i32]
     lib.ibu_sort_file.restype = i32
+    lib.ibu_sort_chunks_range.argtypes = [ctypes.c_char_p, ctypes.c_char_p, u64, u64, u64, i32]
+    lib.ibu_sort_chunks_range.restype = i32
     lib.ibu_run_interval.argtypes = [ctypes.c_char_p, ptr, ptr, i32, ptr]
     lib.ibu_run_interval.restype = i32
     lib.ibu_merge_runs_interval_mt.argtypes = [paths, u64, ptr, ptr, i32, ctypes.c_char_p, u64,
@@ -242,6 +244,29 @@ def sort_file(in_path: str, out_path: str, chunk_records: int = 0, nthreads: int
     if rc == -_EINVAL:
         raise InvalidMapSize()
     _check(rc, "sort_file")
+
+
+def sort_chunks_range(
+    in_path: str,
+    run_prefix: str,
+    start_rec: int,
+    n_rec: int,
+    chunk_records: int = 0,
+    nthreads: int = 0,
+) -> list[str]:
+    """Sorted HEADERLESS runs of a record range of an IBU file.
+
+    Phase 1 of the external sort generalized to a range: the per-rank stage
+    of the cohort host sort. Returns the run paths (``{run_prefix}.runK``);
+    the caller owns their cleanup. A ragged record region, or a range past
+    its end, raises :class:`InvalidMapSize`.
+    """
+    rc = _require().ibu_sort_chunks_range(os.fsencode(in_path), os.fsencode(run_prefix),
+                                          start_rec, n_rec, chunk_records, nthreads)
+    if rc == -_EINVAL:
+        raise InvalidMapSize()
+    _check(min(rc, 0), "sort_chunks_range")
+    return [f"{run_prefix}.run{k}" for k in range(rc)]
 
 
 def sort_records(records: np.ndarray) -> np.ndarray:

@@ -131,10 +131,17 @@ def fold_limbs(level2) -> int:
     return total & U64_MASK
 
 
-def stats_state_from_jax(state: dict) -> dict:
+def stats_state_from_jax(state: dict, shard: int | None = None) -> dict:
     """The JAX package's merged statistics state ``{count, count_hi, sums
     (3, 4, 2) uint32 limbs}`` → this package's ``{count, sums (3,) int64}``
-    (CPU tensors), holding the same record count and mod-2^64 sums."""
+    (CPU tensors), holding the same record count and mod-2^64 sums.
+
+    ``shard=s`` takes shard ``s`` of a per-shard state stacked ``(S, ...)``
+    (the JAX package's ``MapReduce`` states before ``finalize``), the state
+    that seeds rank ``s`` of a cohort: the ranks' merge then equals the JAX
+    package's."""
+    if shard is not None:
+        state = {k: np.asarray(v)[shard] for k, v in state.items()}
     count = int(state["count"]) + (int(state["count_hi"]) << 32)
     sums = np.asarray(state["sums"])
     return {
@@ -145,14 +152,21 @@ def stats_state_from_jax(state: dict) -> dict:
     }
 
 
-def histogram_state_from_jax(state: dict) -> dict:
+def histogram_state_from_jax(state: dict, shard: int | None = None) -> dict:
     """The JAX package's ``DeviceHistogram._state`` (``lo``/``hi``/``cnt``
     uint32 tables, ``n``, ``shard_seen``; its stage must be merged) → the
     table state ``{keys, cnt, n, shard_seen}`` (int64 CPU tensors) that
     :meth:`ibu_tpu_torch.parallel.device.DeviceHistogram.resume` continues
-    from."""
+    from.
+
+    The JAX table is replicated over its shards (merged on the device), so
+    ``shard=s`` seeds rank ``s`` of a cohort: shard 0 takes the table, every
+    other shard an empty table of the same capacity, and the ranks' merge
+    equals the JAX package's table."""
     if np.asarray(state["st_cnt"]).any():
         raise ValueError("the histogram state has staged batches; merge them first")
+    if shard:
+        state = {**state, **{k: np.zeros_like(np.asarray(state[k])) for k in ("lo", "hi", "cnt")}}
     lo = np.asarray(state["lo"], dtype=np.uint32).astype(np.uint64)
     hi = np.asarray(state["hi"], dtype=np.uint32).astype(np.uint64)
     return {

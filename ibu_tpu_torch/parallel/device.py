@@ -1,13 +1,17 @@
-"""Single-device map-reduce over record batches, the flagship statistics and
-the per-barcode histogram engines.
+"""Map-reduce over record batches, the flagship statistics and the
+per-barcode histogram engines, on one card per process.
 
-Counterpart of :mod:`ibu_tpu.parallel.device` for one card: ``update`` folds
-each ``(B, 3)`` int64 record batch into a state of tensors that stays on the
-device until :meth:`MapReduce.finalize` fetches it. The JAX package shards
-every batch over a mesh and merges the shards at the end; the merge across
-cards (``torch.distributed``) is not part of this package yet. On one card
-the mesh has one shard, so the JAX package's "per shard" limits and checks
-are per batch here, and batches carry no padding.
+Counterpart of :mod:`ibu_tpu.parallel.device`: ``update`` folds each ``(B,
+3)`` int64 record batch into a state of tensors that stays on the device until
+:meth:`MapReduce.finalize` fetches it. The JAX package shards every batch over
+a mesh of devices; here one process drives one card, and a mesh of cards is a
+``torch.distributed`` cohort, one rank per card
+(:mod:`ibu_tpu_torch.parallel.multihost`). In a cohort of more than one rank,
+:meth:`MapReduce.finalize` gathers every rank's state in one collective and
+merges them, and :meth:`DeviceHistogram.finalize` merges every rank's table
+and spilled counts into the same ``dict`` on every rank. Within a rank the
+mesh has one shard, so the JAX package's "per shard" limits and checks are
+per batch here, and batches carry no padding.
 """
 
 from __future__ import annotations
@@ -47,15 +51,20 @@ def _tree_map(fn, tree):
 
 @dataclass(frozen=True)
 class MapReduce:
-    """Fold over record batches on one device.
+    """Fold over record batches on one device, merged across the ranks of a
+    cohort.
 
     * ``init(device)`` → the initial state, a dict of tensors on ``device``;
     * ``update(state, records)`` → the new state; ``records`` is a ``(B, 3)``
-      int64 batch with no padding.
+      int64 batch with no padding;
+    * ``merge(states)`` → the merge of the host states stacked by rank (each
+      leaf ``(P, ...)``, ``P`` the cohort's size; 1 outside a cohort).
+      Default: the elementwise sum, which wraps like the int64 sums.
     """
 
     init: Callable[[torch.device], Any]
     update: Callable[[Any, torch.Tensor], Any]
+    merge: Callable[[Any], Any] | None = None
 
     def run(
         self,
@@ -78,19 +87,72 @@ class MapReduce:
     ) -> Any:
         """Fold ``update`` over batches already on the device (e.g. a
         :class:`ibu_tpu_torch.io.stream.DeviceStream`)."""
+        from ibu_tpu_torch.parallel.multihost import process_count
+
         device = resolve_device(device)
         if state is None:
             state = self.init(device)
         else:
             state = _tree_map(lambda t: t.to(device), state)
-        for records in placed:
-            state = self.update(state, records)
-        return self.finalize(state)
+        failed = None
+        try:
+            for records in placed:
+                state = self.update(state, records)
+        except BaseException as e:
+            if process_count() == 1:
+                raise
+            failed = e  # raised on every rank by finalize's one collective
+        return self.finalize(state, failed)
 
-    @staticmethod
-    def finalize(state) -> Any:
-        """Fetch the state to the host as numpy arrays."""
-        return _tree_map(lambda t: t.cpu().numpy(), state)
+    def finalize(self, state, failed: BaseException | None = None) -> Any:
+        """Fetch the state to the host as numpy arrays; in a cohort, gather
+        every rank's state in one collective (:func:`_gather_state_tree`) and
+        merge. A local ``failed`` travels in that collective and is raised on
+        every rank."""
+        from ibu_tpu_torch.parallel.multihost import process_count
+
+        host = _tree_map(to_host, state)
+        if process_count() == 1:
+            if failed is not None:
+                raise failed
+            if self.merge is None:
+                return host
+            return self.merge(_tree_map(lambda x: x[None], host))
+        stacked = _gather_state_tree(host, failed)
+        if self.merge is None:
+            return _tree_map(lambda x: x.sum(axis=0), stacked)
+        return self.merge(stacked)
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+    return [tree]
+
+
+def _gather_state_tree(tree, failed: BaseException | None = None):
+    """Every rank's host state tree, each leaf stacked ``(P, ...)`` by rank,
+    in ONE collective: a failure flag and the leaves' bytes packed into one
+    buffer, one all-gather over the cohort's Gloo group (every rank's tree
+    has the same leaves and shapes, since every rank runs the same engine).
+    A flag set on any rank raises on every rank, as
+    :func:`ibu_tpu_torch.parallel.multihost._cohort_checkpoint` does."""
+    from ibu_tpu_torch.parallel import multihost as MH
+
+    leaves = [np.array(x, order="C") for x in _tree_leaves(tree)]
+    buf = np.concatenate(
+        [np.array([failed is not None], dtype=np.uint8)]
+        + [x.reshape(-1).view(np.uint8) for x in leaves]
+    )
+    gathered = MH._allgather_host(buf)
+    MH._raise_if_failed(gathered[:, 0], failed, "the state merge")
+    out, off = [], 1
+    for x in leaves:
+        part = gathered[:, off:off + x.nbytes]
+        out.append(np.ascontiguousarray(part).view(x.dtype).reshape((-1,) + x.shape))
+        off += x.nbytes
+    stacked = iter(out)
+    return _tree_map(lambda _: next(stacked), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -423,28 +485,72 @@ class DeviceHistogram:
         for k, c in zip(keys[nz].view(np.uint64).tolist(), cnt[nz].tolist()):
             self._spilled[k] = self._spilled.get(k, 0) + c
 
-    def finalize(self) -> dict[int, int]:
+    def finalize(self, failed: BaseException | None = None) -> dict[int, int]:
         """Flush the stage, fetch the table once; returns ``{barcode:
-        count}`` (the device table plus any host-spilled overflow)."""
-        if self._filled:
-            self._run_merge()
-        self._drain_pending()
-        st = {k: to_host(self._state[k]) for k in ("keys", "cnt", "n", "shard_seen")}
-        seen = int(st["shard_seen"])
-        if _decode_seen(seen, "DeviceHistogram") > self.max_uniques_per_shard:
-            raise _shard_overflow(seen, self.max_uniques_per_shard)
-        if not self.spill and int(st["n"]) > self.capacity:
-            raise ValueError(
-                f"{int(st['n'])} distinct barcodes exceed the device table "
-                f"capacity={self.capacity}; raise capacity, enable "
-                "spill=True, or use sharded_barcode_histogram (host merge)"
-            )
-        nz = st["cnt"] != 0
-        out = dict(zip(st["keys"][nz].view(np.uint64).tolist(), st["cnt"][nz].tolist()))
+        count}`` (the device table plus any host-spilled overflow).
+
+        In a cohort of more than one rank
+        (:mod:`ibu_tpu_torch.parallel.multihost`), every rank's table and
+        spilled counts merge into the same ``dict`` on every rank, and the
+        two checks read the whole cohort (the largest ``n_seen`` and distinct
+        count of any rank, and the merged distinct count), so they raise on
+        every rank together with the same text. ``failed``, an error of this
+        rank's batch loop, is then raised on every rank too."""
+        from ibu_tpu_torch.parallel import multihost as MH
+
+        if MH.process_count() > 1:
+            return self._finalize_cohort(failed)
+        if failed is not None:
+            raise failed
+        seen, n, keys, cnt = self._local_table()
+        self._check(seen, n)
+        out = dict(zip(keys.view(np.uint64).tolist(), cnt.tolist()))
         # a spilled key can re-enter the table later, so counts add
         for k, c in self._spilled.items():
             out[k] = out.get(k, 0) + c
         return out
+
+    def _local_table(self):
+        """This rank's ``(n_seen, n, keys, counts)``: the flushed table's
+        live entries, keys as int64 bits."""
+        if self._filled:
+            self._run_merge()
+        self._drain_pending()
+        st = {k: to_host(self._state[k]) for k in ("keys", "cnt", "n", "shard_seen")}
+        nz = st["cnt"] != 0
+        return int(st["shard_seen"]), int(st["n"]), st["keys"][nz], st["cnt"][nz]
+
+    def _check(self, seen: int, n: int) -> None:
+        if _decode_seen(seen, "DeviceHistogram") > self.max_uniques_per_shard:
+            raise _shard_overflow(seen, self.max_uniques_per_shard)
+        if not self.spill and n > self.capacity:
+            raise ValueError(
+                f"{n} distinct barcodes exceed the device table "
+                f"capacity={self.capacity}; raise capacity, enable "
+                "spill=True, or use sharded_barcode_histogram (host merge)"
+            )
+
+    def _finalize_cohort(self, failed: BaseException | None) -> dict[int, int]:
+        from ibu_tpu_torch.parallel import multihost as MH
+
+        seen, n = 0, 0
+        entries = np.zeros((2, 0), dtype=np.int64)
+        try:
+            if failed is None:
+                seen, n, keys, cnt = self._local_table()
+                spilled = np.array(list(self._spilled.items()), dtype=np.uint64).reshape(-1, 2)
+                entries = np.stack([
+                    np.concatenate([keys, spilled[:, 0].view(np.int64)]),
+                    np.concatenate([cnt, spilled[:, 1].astype(np.int64)]),
+                ])
+        except BaseException as e:
+            failed = e
+        lanes = MH._cohort_checkpoint(failed, "the histogram merge",
+                                      (seen, n, entries.shape[1]))
+        parts = MH._allgather_varlen(entries, lanes[:, 2])
+        keys, cnt = group_sum_np((e[0].view(np.uint64), e[1]) for e in parts)
+        self._check(int(lanes[:, 0].max()), max(int(lanes[:, 1].max()), len(keys)))
+        return dict(zip(keys.tolist(), cnt.tolist()))
 
     def run(self, batches: Iterable[np.ndarray]) -> dict[int, int]:
         """Fold all ``batches`` and finalize."""

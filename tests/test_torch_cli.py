@@ -50,8 +50,12 @@ SUBCOMMANDS = {"info", "stats", "sort", "histogram", "decode", "split", "merge",
 
 def port_text(text: str) -> str:
     """A text of the JAX package as the port words it: where it names its
-    own command, the port names ``python -m ibu_tpu_torch``."""
-    return text.replace("python -m ibu_tpu ", "python -m ibu_tpu_torch ")
+    own command, the port names ``python -m ibu_tpu_torch``; where it names
+    the TPU or the jax mesh, the port names the CUDA cards of its cohort."""
+    return (text.replace("python -m ibu_tpu ", "python -m ibu_tpu_torch ")
+            .replace("the jax device mesh", "the cohort's cards")
+            .replace("mesh on TPU", "mesh on CUDA cards")
+            .replace("(no TPU)", "(no card)"))
 
 
 def write(path, records, sorted_flag=False, bc_len=16, umi_len=12):
@@ -151,6 +155,19 @@ CASES = [
     ("sort gzip", ["sort", "{GZ}", "o.ibu"]),
     ("sort gzip device", ["sort", "{GZ}", "o.ibu", "--engine", "device"]),
     ("sort missing", ["sort", "{MISSING}", "o.ibu"]),
+    ("sort mesh", ["sort", "{C}", "o.ibu", "--engine", "mesh"]),
+    ("sort mesh threads", ["sort", "{C}", "o.ibu", "--engine", "mesh", "--threads", "2"]),
+    ("sort pod", ["sort", "{C}", "o.ibu", "--engine", "pod", "--chunk-records", "70"]),
+    ("sort pod override", ["sort", "{C}", "o.ibu", "--engine", "pod"], None,
+     {"IBU_POD_SORT_ENGINE": "mesh"}),
+    ("sort pod bad override", ["sort", "{C}", "o.ibu", "--engine", "pod"], None,
+     {"IBU_POD_SORT_ENGINE": "bogus"}),
+    ("sort distributed native", ["sort", "{C}", "o.ibu", "--distributed"]),
+    ("sort mesh gzip", ["sort", "{GZ}", "o.ibu", "--engine", "mesh"]),
+    ("stats distributed native", ["stats", "{P}", "--distributed", "--engine", "native"]),
+    ("stats distributed gzip", ["stats", "{GZ}", "--distributed"]),
+    ("histogram distributed host", ["histogram", "{P}", "--distributed", "--engine", "host"]),
+    ("histogram distributed gzip", ["histogram", "{GZ}", "--distributed"]),
     ("histogram plain", ["histogram", "{P}", "--top", "5"]),
     ("histogram gzip", ["histogram", "{GZ}", "--top", "5"]),
     ("histogram device", ["histogram", "{P}", "--top", "5", "--engine", "device"]),
@@ -336,19 +353,86 @@ def test_help_lists_the_subcommands(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["stats", "{P}", "--distributed"],
-    ["sort", "{P}", "o.ibu", "--engine", "mesh"],
-    ["sort", "{P}", "o.ibu", "--engine", "pod"],
-], ids=["distributed", "sort mesh", "sort pod"])
+    ["filter", "{P}", "o.ibu", "--barcodes", "{ALLOW}", "--distributed"],
+    ["count", "{CS}", "m", "--distributed"],
+    ["correct", "{C}", "o.ibu", "--barcodes", "{CELLS}", "--num-processes", "2"],
+    ["dedup", "{CS}", "o.ibu", "--process-id", "0"],
+    ["ingest-fastq", "{FQ}", "o.ibu", "--coordinator", "localhost:1"],
+    ["export-fastq", "{P}", "o.fastq", "--distributed"],
+], ids=["filter", "count", "correct", "dedup", "ingest-fastq", "export-fastq"])
 def test_multihost_options_are_refused(argv, files, tmp_path, monkeypatch, capsys):
-    """The pod-wide options wait for the port of the multihost engines:
-    argparse refuses them with exit code 2 and writes nothing."""
+    """The six commands whose cohort engines are not ported yet refuse the
+    distributed options: argparse exits 2 and nothing is written."""
     monkeypatch.chdir(tmp_path)
+    argv = fill(argv, files) + (["--device", "cpu"] if argv[0] in DEVICE_COMMANDS else [])
     with pytest.raises(SystemExit) as done:
-        torch_main(fill(argv, files) + ["--device", "cpu"])
+        torch_main(argv)
     assert done.value.code == 2
-    assert "usage: ibu_tpu_torch" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "usage: ibu_tpu_torch" in err and "unrecognized arguments: --" in err
     assert not list(tmp_path.iterdir())
+
+
+#: (case id, argv) run by a 2-rank cohort of the port with ``--distributed``
+#: and by the JAX package in one process without it
+COHORT_CASES = [
+    ("stats", ["stats", "{P}"], None),
+    ("histogram", ["histogram", "{C}", "--top", "20"], None),
+    ("histogram table", ["histogram", "{C}", "--device-table", "32", "--top", "7"], None),
+    ("sort mesh", ["sort", "{C}", "mesh.ibu", "--engine", "mesh"], None),
+    ("sort pod", ["sort", "{C}", "pod.ibu", "--engine", "pod"], None),
+    ("sort pod host", ["sort", "{C}", "host.ibu", "--engine", "pod"], "host"),
+]
+
+
+@pytest.fixture(scope="module")
+def cohort(files, tmp_path_factory):
+    """One 2-rank launch of the port's CLI: every cohort case, then the
+    failure injected on rank 1. Each rank joins through the first command's
+    flags, and runs in the launch's directory (outputs there)."""
+    from tests.torch_cohort import launch
+
+    d = tmp_path_factory.mktemp("cli_cohort")
+    tasks = [(cid, "cli", {"argv": fill(argv, files) + ["--device", "cpu"], "env": env})
+             for cid, argv, env in COHORT_CASES]
+    tasks.append(("fail", "cli_failing_on_rank1",
+                  {"argv": fill(["sort", "{C}", "fail.ibu", "--engine", "pod"], files)
+                   + ["--device", "cpu"]}))
+    return d, launch(2, tasks, d, init=False)
+
+
+def _program_lines(err: str, prefixes=("# ", "pod sort engine auto:")) -> list[str]:
+    return [line for line in err.splitlines() if line.startswith(prefixes)]
+
+
+@pytest.mark.parametrize("case", COHORT_CASES, ids=[c[0] for c in COHORT_CASES])
+def test_distributed_rank0_matches_jax(case, cohort, files, tmp_path, monkeypatch, capsys):
+    """Rank 0 prints what the JAX CLI prints in one process (exit code and
+    standard output exactly; on stderr the lines the program writes), rank 1
+    prints nothing, and the file the cohort wrote is the JAX CLI's."""
+    cid, argv, env = case
+    d, ranks = cohort
+    if env:
+        monkeypatch.setenv("IBU_POD_SORT_ENGINE", env)
+    jrc, jout, jerr = run(jax_main, fill(argv, files), tmp_path, monkeypatch, capsys)
+    (rc0, out0, err0), (rc1, out1, err1) = (r[cid][1] for r in ranks)
+    assert (rc0, out0) == (jrc, jout) and jrc == 0
+    assert _program_lines(err0) == _program_lines(port_text(jerr))
+    assert (rc1, out1) == (0, "")
+    if argv[0] == "sort":
+        assert (d / argv[2]).read_bytes() == (tmp_path / argv[2]).read_bytes()
+
+
+def test_a_failure_on_rank1_ends_both_ranks(cohort):
+    """Rank 1's run sort raises: both ranks exit 1 with one line each, within
+    the launch's time limit, and no output is left."""
+    d, ranks = cohort
+    (rc0, out0, err0), (rc1, out1, err1) = (r["fail"][1] for r in ranks)
+    assert (rc0, rc1, out0, out1) == (1, 1, "", "")
+    assert err0.splitlines()[-1] == ("error: multihost operation failed on another process "
+                                     "during the run sort (see that rank's error)")
+    assert err1.splitlines()[-1] == "error: injected failure on rank 1"
+    assert not any(p.name.startswith("fail.ibu") for p in d.iterdir())
 
 
 def test_python_m_runs_the_cli(files, tmp_path):

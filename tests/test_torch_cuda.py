@@ -689,3 +689,89 @@ def test_cli_codec_commands_on_card_equal_the_cpu(card, tmp_path, fresh_select, 
     assert launches["card"] == (reader_batches, 1, 1) and launches["cpu"] == (0, 0, 0)
     assert outs["card"] == outs["cpu"]
     assert outs["card"][0].count("\n") == n
+
+
+# ---------------------------------------------------------------------------
+# the cohort layer on the card
+# ---------------------------------------------------------------------------
+
+
+def _by_key(recs):
+    return np.sort(recs, order=("barcode", "umi", "index"))
+
+
+def test_cohort_of_one_on_nccl(card, tmp_path):
+    """A world of one on NCCL: the sample sort's gathers ride Gloo and its
+    exchange NCCL; files equal ``native.sort_file``, dicts the host engines';
+    the group is destroyed after."""
+    import torch.distributed as dist
+
+    from ibu_tpu_torch import native
+    from ibu_tpu_torch.parallel import multihost as MH
+    from ibu_tpu_torch.parallel import sort as MS
+
+    rng = np.random.default_rng(61)
+    n = 300_001
+    pool = rng.integers(0, 1 << 32, 5000, dtype=np.uint64)  # under a batch's 65,536 barcodes
+    recs = make_records(pool[rng.integers(0, 5000, n)],
+                        rng.integers(0, 1 << 24, n, dtype=np.uint64),
+                        np.arange(n, dtype=np.uint64))
+    src = write_records(tmp_path / "u.ibu", recs, 16, 12)
+    native.sort_file(src, str(tmp_path / "native.ibu"))
+    want = (tmp_path / "native.ibu").read_bytes()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        assert MH.exchange_backend(card) == "nccl" and MH.exchange_backend("cpu") == "gloo"
+        got = MS.sharded_sort_records(recs, device=card, bc_len=16, umi_len=12, index_bits=32)
+        assert got.tobytes() == _by_key(recs).tobytes()
+        MS.sort_file_mesh(src, str(tmp_path / "mesh.ibu"), device=card)
+        for engine in ("mesh", "host"):
+            MH.multihost_sort_file(src, str(tmp_path / f"{engine}.ibu"), device=card,
+                                   engine=engine)
+        for name in ("mesh", "host"):
+            assert (tmp_path / f"{name}.ibu").read_bytes() == want
+        stats = MH.multihost_file_stats(src, device=card)
+        host = TPL.file_stats(src, engine="host")
+        host.pop("engine", None)
+        assert stats == host
+        assert MH.multihost_barcode_histogram(src, device=card) == TS.barcode_histogram_np(recs)
+    finally:
+        dist.destroy_process_group()
+    assert MH.process_count() == 1
+
+
+def test_two_ranks_on_one_card_exchange_over_gloo(card, tmp_path):
+    """Two ranks sharing the card: NCCL would refuse them, so the exchange
+    takes Gloo through pinned host buffers, chosen from the gathered card
+    identities on both ranks; the sort equals numpy's."""
+    from tests.torch_cohort import launch
+
+    recs = make_records(np.arange(50_000, dtype=np.uint64)[::-1].copy() % np.uint64(977),
+                        np.zeros(50_000, np.uint64), np.arange(50_000, dtype=np.uint64))
+    np.save(tmp_path / "r.npy", recs)
+    ranks = launch(2, [("backend", "backend", {"device": "cuda"}),
+                       ("sort", "sharded_sort", {"path": str(tmp_path / "r.npy"),
+                                                 "device": "cuda", "bc_len": 16})], tmp_path / "c")
+    assert [r["backend"] for r in ranks] == [
+        ("ok", {"exchange": "gloo", "rank": k, "world": 2}) for k in range(2)]
+    assert ranks[0]["sort"][0] == "ok"
+    assert ranks[0]["sort"][1]["out"].tobytes() == _by_key(recs).tobytes()
+
+
+@pytest.mark.parametrize("shuffle", [False, "global", "blocks"])
+def test_record_loader_on_card(card, tmp_path, shuffle):
+    from ibu_tpu_torch.data import RecordLoader
+
+    rng = np.random.default_rng(62)
+    n = 100_003
+    recs = make_records(rng.integers(0, 1 << 32, n, dtype=np.uint64),
+                        rng.integers(0, 1 << 24, n, dtype=np.uint64),
+                        np.arange(n, dtype=np.uint64))
+    src = write_records(tmp_path / "u.ibu", recs, 16, 12)
+    kw = dict(shuffle=shuffle, seed=4, block_records=8192, drop_remainder=False)
+    host = list(RecordLoader(src, 16384, to_device=False, **kw).host_batches(1))
+    dev = list(RecordLoader(src, 16384, **kw).epoch(1))
+    assert [t.device.type for t in dev] == ["cuda"] * len(host)
+    for t, want in zip(dev, host):
+        assert t.cpu().numpy().tobytes() == np.ascontiguousarray(want).tobytes()

@@ -17,6 +17,7 @@ import torch
 from ibu_tpu_torch import Header, MmapReader, Writer, make_records, native
 from ibu_tpu_torch import pipelines as PL
 from ibu_tpu_torch import validate as V
+from ibu_tpu_torch.data import RecordLoader
 from ibu_tpu_torch.errors import NO_CARD_HINT, NoCardError
 from ibu_tpu_torch.examples import fastq_ingest as FI
 from ibu_tpu_torch.examples import roundtrip as RT
@@ -25,7 +26,9 @@ from ibu_tpu_torch.io.stream import DeviceStream
 from ibu_tpu_torch.ops import correct as TC
 from ibu_tpu_torch.ops import knee as TK
 from ibu_tpu_torch.parallel import device as D
+from ibu_tpu_torch.parallel import multihost as MH
 from ibu_tpu_torch.parallel import select as SEL
+from ibu_tpu_torch.parallel import sort as MS
 from ibu_tpu_torch.utils.device import resolve_device, select_device
 
 
@@ -129,6 +132,16 @@ ENTRY_POINTS = {
     "auto_stats_engine": lambda p: SEL.auto_stats_engine(p, 64),
     "auto_device_or_host": lambda p: SEL.auto_device_or_host(),
     "measure_device_feed_gbps": lambda p: SEL.measure_device_feed_gbps(),
+    "sharded_sort_records": lambda p: MS.sharded_sort_records(records_of(p)),
+    "sort_file_mesh": lambda p: MS.sort_file_mesh(p, p + ".mesh"),
+    "multihost_sort_file mesh": lambda p: MH.multihost_sort_file(p, p + ".pod", engine="mesh"),
+    "multihost_sort_file auto": lambda p: MH.multihost_sort_file(p, p + ".pod"),
+    "multihost_file_stats": lambda p: MH.multihost_file_stats(p),
+    "multihost_barcode_histogram": lambda p: MH.multihost_barcode_histogram(p),
+    "multihost_map_reduce": lambda p: MH.multihost_map_reduce(p, D.STATS_MAP_REDUCE),
+    "multihost_placed_batches": lambda p: MH.multihost_placed_batches(MmapReader(p)),
+    "exchange_backend": lambda p: MH.exchange_backend(),
+    "RecordLoader.epoch": lambda p: RecordLoader(p, 8).epoch(0),
 }
 
 
@@ -156,7 +169,8 @@ def test_entry_points_without_device_raise(ibu_file, name):
 
 #: the entry points above that write a file
 WRITERS = ("encode_sorted_file", "sort_file_device", "dedup_file unsorted", "count_matrix device",
-           "call_cells device", "correct_file", "export_fastq", "ingest_fastq")
+           "call_cells device", "correct_file", "export_fastq", "ingest_fastq", "sort_file_mesh",
+           "multihost_sort_file mesh", "multihost_sort_file auto")
 
 
 @pytest.mark.parametrize("name", WRITERS)
@@ -214,6 +228,47 @@ def test_the_fastq_calls_run_on_the_cpu_by_name(ibu_file):
     assert PL.subsample_file(p, p + ".sub", n=5)["sampled"] == 5
     assert PL.repair_file(p, p + ".fixed")["records"] == 64
     assert PL.concat_files(PL.split_file(p, p + ".{}.part", 3), p + ".cat")["records"] == 64
+
+
+def test_the_cohort_calls_run_on_the_cpu_by_name(ibu_file):
+    """Outside a cohort (a world of one) the cohort layer's entry points run
+    on the CPU when asked; the host sort engine needs no device."""
+    p = ibu_file
+    records = records_of(p)
+    want = np.sort(records, order=("barcode", "umi", "index"))
+    assert np.array_equal(MS.sharded_sort_records(records, device="cpu"), want)
+    MS.sort_file_mesh(p, p + ".mesh", device="cpu")
+    MH.multihost_sort_file(p, p + ".auto", device="cpu")
+    MH.multihost_sort_file(p, p + ".host", engine="host")
+    for out in (".mesh", ".auto", ".host"):
+        assert np.array_equal(records_of(p + out), want)
+    assert MH.multihost_file_stats(p, device="cpu")["count"] == 64
+    assert MH.multihost_barcode_histogram(p, device="cpu") == {int(b): 1 for b in records["barcode"]}
+    assert MH.exchange_backend("cpu") is None
+    assert sum(len(b) for b in RecordLoader(p, 8, device="cpu").epoch(0)) == 64
+
+
+@pytest.mark.parametrize("argv", [
+    ["sort", "{p}", "out", "--engine", "mesh"],
+    ["sort", "{p}", "out", "--engine", "pod"],
+    ["stats", "{p}", "--distributed"],
+    ["histogram", "{p}", "--distributed"],
+], ids=lambda v: " ".join(v[2:]).replace("{p} ", ""))
+def test_cli_cohort_commands_without_a_card_exit_2(cli_inputs, monkeypatch, capsys, argv):
+    """The cohort forms of the commands (in a world of one here) need a card
+    like the rest: one line and exit 2 without one, and ``--device cpu``
+    runs."""
+    from ibu_tpu_torch.__main__ import main
+
+    inputs, out = cli_inputs
+    monkeypatch.chdir(out)
+    argv = [a.format(**inputs) for a in argv]
+    assert main(argv) == 2
+    printed = capsys.readouterr()
+    assert (printed.out, printed.err) == ("", f"ibu_tpu_torch {argv[0]}: {NO_CARD_HINT}\n")
+    assert not list(out.iterdir())
+    assert main(argv + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out or list(out.iterdir())
 
 
 @pytest.mark.parametrize("env", ["host", "device"])
@@ -333,6 +388,7 @@ def test_cli_device_commands_without_a_card_exit_2(cli_inputs, monkeypatch, caps
     (["decode", "{p}"], "host"),
     (["export-fastq", "{sorted}", "out"], "host"),
     (["ingest-fastq", "{fastq}", "out"], "host"),
+    (["sort", "{p}", "out", "--engine", "pod"], "pod host"),
 ], ids=lambda v: v if isinstance(v, str) else " ".join(v) if v else "")
 def test_cli_host_engines_need_no_card(cli_inputs, monkeypatch, capsys, argv, env):
     """A command whose engine does not use a device looks none up: it runs
@@ -341,7 +397,9 @@ def test_cli_host_engines_need_no_card(cli_inputs, monkeypatch, capsys, argv, en
 
     inputs, out = cli_inputs
     monkeypatch.chdir(out)
-    if env:
+    if env == "pod host":
+        monkeypatch.setenv("IBU_POD_SORT_ENGINE", "host")
+    elif env:
         monkeypatch.setenv("IBU_AUTO_ENGINE", env)
     assert main([a.format(**inputs) for a in argv]) == 0
     assert "no CUDA card" not in capsys.readouterr().err

@@ -31,6 +31,8 @@ def test_port_loads_no_jax():
         "import ibu_tpu_torch.examples.fastq_ingest, ibu_tpu_torch.examples.roundtrip\n"
         "import ibu_tpu_torch.__main__, ibu_tpu_torch.parallel.processor\n"
         "import ibu_tpu_torch.examples.random, ibu_tpu_torch.examples.parallel\n"
+        "import ibu_tpu_torch.parallel.multihost, ibu_tpu_torch.parallel.sort\n"
+        "import ibu_tpu_torch.data\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -69,6 +71,15 @@ CLI_MODULES = ("__main__.py", "parallel/processor.py", "examples/random.py",
 def test_the_scans_cover_the_cli_modules():
     scanned = {str(p.relative_to(REPO)) for p in PORT_SOURCES}
     for name in CLI_MODULES:
+        assert f"ibu_tpu_torch/{name}" in scanned
+
+
+COHORT_MODULES = ("parallel/multihost.py", "parallel/sort.py", "data.py")
+
+
+def test_the_scans_cover_the_cohort_modules():
+    scanned = {str(p.relative_to(REPO)) for p in PORT_SOURCES}
+    for name in COHORT_MODULES:
         assert f"ibu_tpu_torch/{name}" in scanned
 
 
@@ -135,7 +146,8 @@ def test_every_port_module_loads_without_ibu_tpu_or_jax():
                  "ibu_tpu_torch.examples", "ibu_tpu_torch.examples.workflow",
                  "ibu_tpu_torch.parallel.select", "ibu_tpu_torch.parallel.host",
                  "ibu_tpu_torch.examples.fastq_ingest", "ibu_tpu_torch.examples.roundtrip",
-                 *(f"ibu_tpu_torch.{n.removesuffix('.py').replace('/', '.')}" for n in CLI_MODULES)):
+                 *(f"ibu_tpu_torch.{n.removesuffix('.py').replace('/', '.')}"
+                   for n in CLI_MODULES + COHORT_MODULES)):
         assert name in modules
     code = (
         "import importlib, sys\n"
