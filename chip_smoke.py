@@ -62,9 +62,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     every matrix entry in the planted truth. The codec kernels' launch
     counters are zeroed just before the phase; ``encode_records``' must be
     positive after it. Each stage's wall time is printed, the
-    ``torch.profiler`` device time of one more run of ``count_matrix(engine=
-    "device")`` and of ``correct_file``, and ``cProfile``'s heaviest host
-    functions of one more run of those two and of ``dedup_file``;
+    ``torch.profiler`` device time of one more run of ``correct_file``, and
+    ``cProfile``'s heaviest host functions of one more run of it and of
+    ``dedup_file``;
 11. drive FASTQ → IBU → FASTQ at 5M reads (bc16/umi12): a sorted 5M-record
     file; both record kernels held exactly against their plain versions on
     that file's records at every batch shape this path and phase 12's
@@ -120,13 +120,32 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     ``native.sort_file``; ``multihost_file_stats`` and
     ``multihost_barcode_histogram`` equal to the native and host engines),
     the group destroyed after; two ranks on the one card, one launch of this
-    script as the rank workers, each running ``sort --engine mesh``, ``sort
-    --engine pod`` (``IBU_POD_SORT_ENGINE=host``), ``stats`` and ``histogram
-    --top 20`` through ``ibu_tpu_torch.__main__.main`` with ``--distributed``:
-    rank 0 prints what one process prints, rank 1 nothing, the files equal
-    ``native.sort_file``'s, the exchange backend (Gloo: NCCL refuses two ranks
-    on one card) and each rank's share of the mesh sort logged, then a failure
-    injected into rank 1's run sort must end both ranks; and ``RecordLoader``
+    script as the rank workers under ``IBU_AUTO_ENGINE=device``, each running
+    through ``ibu_tpu_torch.__main__.main`` with ``--distributed`` and no
+    ``--device``: ``sort --engine mesh``, ``sort --engine pod``
+    (``IBU_POD_SORT_ENGINE=host``), ``stats`` and ``histogram --top 20`` on
+    the cohort file; ``correct`` of phase 10's raw file (equal to phase 10's
+    corrected file), ``dedup --assume-sorted no`` of that (the mesh sort inside;
+    equal to phase 10's molecules), ``dedup``, ``filter`` and ``filter
+    --invert`` (the first 1,000 called cells) of the sorted cohort file,
+    ``count`` of phase 10's molecules (the trio equal to phase 10's host
+    trio, rank 0's line to phase 12's), ``export-fastq`` of the sorted cohort
+    file (the shards in rank order equal one process's export) and
+    ``ingest-fastq`` of the shards concatenated (the sorted file with
+    ``arange`` as its index column). Rank 0 prints what one process prints,
+    rank 1 nothing; the exchange backend (Gloo: NCCL refuses two ranks on one
+    card) and each rank's share of the mesh sorts are logged; both record
+    kernels are held against their plain versions, before the launch, at the
+    batch shapes the ranks give them (the export's 2^20 rows and each rank's
+    tail, the ingest's 200,000 rows and each rank's last batch of its byte
+    range), each rank reports the batch sizes it gave them, and
+    ``decode_records`` and ``encode_records`` must launch once per batch on
+    each rank. Three failures must end both ranks and leave no output: the
+    run sort failing on rank 1, a write failing on rank 1 in ``count``, and
+    ``dedup`` of a copy of the cohort file whose sorted flag lies. Each
+    command's two-rank wall is printed beside one process's wall of the same
+    command on the same file (``count``'s is phase 10's host count), with
+    the ratio; and ``RecordLoader``
     at 2^20-record batches (sequential, ``"global"``, two ``"blocks"``
     epochs): every batch's checksum on the card equal to ``host_batches``',
     each epoch an exact permutation, the two epochs different, two shards an
@@ -135,7 +154,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 
 Phases 1-10 name ``engine="device"`` where they assert launches; only
 ``decode_file``, which takes no engine, runs under a scoped
-``IBU_AUTO_ENGINE=device``, as phase 11's legs do.
+``IBU_AUTO_ENGINE=device``, as phase 11's legs and phase 13's ranks do.
 
 The second-to-last line is a JSON object with one entry per kernel (the four
 production kernels, the six codec lab kernels with each mode's figures under
@@ -148,8 +167,10 @@ PyTorch computes the same function, that time (``library_ms``, else null:
 for ``digit_histogram`` the index pass and ``torch.bincount`` together, the
 call alone under ``bincount_ms``). The last line is
 ``{"ok": true, "device": {...}}``. The two record kernels also carry
-``fastq_launches``, their launches in phase 11's device legs, and
-``cli_launches``, their launches under phase 12's in-process commands.
+``fastq_launches``, their launches in phase 11's device legs,
+``cli_launches``, their launches under phase 12's in-process commands, and
+``cohort_launches``, their launches in each rank of phase 13's cohort
+commands.
 """
 
 from __future__ import annotations
@@ -945,8 +966,9 @@ def workflow_phase(card, reads: int, workdir: Path) -> dict:
     dev = wall(f"workflow count_matrix device {molecules}", lambda: PL.count_matrix(
         mol, str(workdir / "wf_dev"), batch_records=WF_BATCH, engine="device",
         max_pairs=WF_MAX_PAIRS, device=card))
+    walls: dict = {}
     host = wall(f"workflow count_matrix host {molecules}", lambda: PL.count_matrix(
-        mol, str(workdir / "wf_host"), batch_records=WF_BATCH))
+        mol, str(workdir / "wf_host"), batch_records=WF_BATCH), walls, "count")
     log(f"workflow: count {dev}")
     require(dev == host and count_trio(str(workdir / "wf_dev")) == count_trio(
         str(workdir / "wf_host")), "count_matrix device is byte-identical to host")
@@ -963,16 +985,15 @@ def workflow_phase(card, reads: int, workdir: Path) -> dict:
     log(f"launches on the workflow path: {launches}")
     require(launches["encode_records"] > 0, "encode_records ran on the workflow path")
 
+    # count_matrix(engine="device") is not run again here to keep the script
+    # under 7 minutes: PERF.md holds its device time and host profile
     again = {
-        "count_matrix device": lambda: PL.count_matrix(
-            mol, str(workdir / "wf_again"), batch_records=WF_BATCH, engine="device",
-            max_pairs=WF_MAX_PAIRS, device=card),
         "correct_file": lambda: PL.correct_file(raw, str(workdir / "wf_again.ibu"), called,
                                                 device=card),
         "dedup_file": lambda: PL.dedup_file(fixed, str(workdir / "wf_again.ibu"),
                                             assume_sorted=False, device=card),
     }
-    for name in ("count_matrix device", "correct_file"):
+    for name in ("correct_file",):
         t0 = time.perf_counter()
         ms = device_ms(again[name], [()], iters=1, warm=False)
         dt = time.perf_counter() - t0
@@ -984,7 +1005,7 @@ def workflow_phase(card, reads: int, workdir: Path) -> dict:
     log(f"workflow: {entries - len(missing)} of {entries} entries in the planted truth "
         f"({(entries - len(missing)) / len(truth):.1%} coverage)")
     return {"raw": raw, "cells": allowfile, "corrected": fixed, "molecules": mol,
-            "counts": str(workdir / "wf_host")}
+            "counts": str(workdir / "wf_host"), "count_wall": walls["count"]}
 
 
 def pinned_memory(reset: bool = False) -> str:
@@ -1040,6 +1061,13 @@ def check_fastq_shapes(card, records: np.ndarray) -> None:
         shapes[f"{name} batch"] = records[:batch]
         if n % batch:
             shapes[f"{name} tail"] = records[n - n % batch:]
+    hold_record_kernels(card, shapes, "fastq")
+
+
+def hold_record_kernels(card, shapes: dict, phase: str) -> None:
+    """Decode each ``label → records`` part with ``decode_records`` and
+    encode the rows back with ``encode_records``, each held exactly against
+    its plain version, and the round trip against the records."""
     for label, part in shapes.items():
         words = records_to_tensor(part, card)
         rows = K.decode_records(words, BC_LEN, UMI_LEN)
@@ -1050,7 +1078,7 @@ def check_fastq_shapes(card, records: np.ndarray) -> None:
         require(err == 0.0, f"encode_records at the {label}'s {len(part)} rows: max_abs_err {err}")
         require(torch.equal(packed, words), f"the {label} encodes back to its records")
         torch.cuda.synchronize()
-        log(f"fastq: kernels equal their plain versions at the {label}'s {len(part)} rows "
+        log(f"{phase}: kernels equal their plain versions at the {label}'s {len(part)} rows "
             "(max_abs_err 0)")
 
 
@@ -1356,8 +1384,10 @@ def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
     cli_ok(run_cli(["dedup", wf["corrected"], path, "--assume-sorted", "no"], walls,
                    "dedup native sort"), "dedup")
     same_file(path, wf["molecules"], "dedup --assume-sorted no")
-    cli_ok(run_cli(["count", wf["molecules"], out("counts")], walls, "count host"), "count")
+    proc = run_cli(["count", wf["molecules"], out("counts")], walls, "count host")
+    cli_ok(proc, "count")
     require(count_trio(out("counts")) == count_trio(wf["counts"]), "count equals count_matrix")
+    count_line = (proc.stdout.decode(), out("counts"))
     proc = run_cli(["count", wf["molecules"], out("counts_dev"), "--engine", "device"], walls,
                    "count device")
     err = proc.stderr.decode()
@@ -1463,74 +1493,126 @@ def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
     log("cli: walls (one run each, a new process each): " + ", ".join(
         f"{k} {v:.3f} s" for k, v in walls.items()))
     log(f"cli: phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return cli_launches
+    return cli_launches, count_line
 
 
 COHORT_WORLD = 2  # ranks of phase 13's cohort on the one card
 LOADER_BATCH = 1 << 20
 
 
-def cohort_commands(src: str, workdir: Path) -> list[tuple[str, list[str], str | None]]:
-    """Phase 13's cohort commands: ``(key, argv, IBU_POD_SORT_ENGINE)``."""
-    return [
-        ("sort mesh", ["sort", src, str(workdir / "mesh.ibu"), "--engine", "mesh"], None),
-        ("sort pod host", ["sort", src, str(workdir / "pod.ibu"), "--engine", "pod"], "host"),
+def cohort_commands(src: str, want: str, wf: dict, workdir: Path) -> list[dict]:
+    """Phase 13's cohort commands, each ``{"key", "argv", "pod"
+    (IBU_POD_SORT_ENGINE or None), "fault" (None, or what rank 1 injects)}``.
+    Export comes before ingest: rank 0 concatenates the export's shards into
+    ingest's input between the two."""
+    def w(name: str) -> str:
+        return str(workdir / name)
+
+    cells = w("cells1000.txt")
+    commands = [
+        ("sort mesh", ["sort", src, w("mesh.ibu"), "--engine", "mesh"], None),
+        ("sort pod host", ["sort", src, w("pod.ibu"), "--engine", "pod"], "host"),
         ("stats", ["stats", src], None),
         ("histogram", ["histogram", src, "--top", "20"], None),
+        ("correct", ["correct", wf["raw"], w("corrected.ibu"), "--barcodes", wf["cells"]], None),
+        ("dedup unsorted", ["dedup", wf["corrected"], w("molecules.ibu"), "--assume-sorted", "no"],
+         None),
+        ("dedup sorted", ["dedup", want, w("dedup.ibu")], None),
+        ("filter", ["filter", want, w("filter.ibu"), "--barcodes", cells], None),
+        ("filter invert", ["filter", want, w("invert.ibu"), "--barcodes", cells, "--invert"], None),
+        ("count", ["count", wf["molecules"], w("counts")], None),
+        ("export-fastq", ["export-fastq", want, w("cohort.fastq")], None),
+        ("ingest-fastq", ["ingest-fastq", w("cohort_cat.fastq"), w("ingest.ibu"),
+                          "--bc-len", str(BC_LEN), "--umi-len", str(UMI_LEN)], None),
     ]
+    out = [{"key": k, "argv": a, "pod": p, "fault": None} for k, a, p in commands]
+    out += [
+        {"key": "fail", "argv": ["sort", src, w("fail.ibu"), "--engine", "pod"], "pod": "host",
+         "fault": "run sort"},
+        {"key": "fail count", "argv": ["count", wf["molecules"], w("fail_counts")], "pod": None,
+         "fault": "write"},
+        {"key": "lying flag", "argv": ["dedup", w("lie.ibu"), w("lie_out.ibu")], "pod": None,
+         "fault": None},
+    ]
+    return out
 
 
-def cohort_rank(rank: int, world: int, src: str, workdir: Path, device: str | None) -> int:
-    """One rank of phase 13's cohort: every cohort command through
-    ``ibu_tpu_torch.__main__.main`` with ``--distributed``, then the run sort
-    failing on rank 1. Writes what each printed, its wall, the exchange
-    backend and this rank's share of the mesh sort to ``rank{rank}.json``."""
+def cohort_rank(rank: int, world: int, workdir: Path, device: str | None) -> int:
+    """One rank of phase 13's cohort: every command of ``commands.json``
+    through ``ibu_tpu_torch.__main__.main`` with ``--distributed``, under
+    ``IBU_AUTO_ENGINE=device`` (the codec kernels' launches are counted per
+    command), with rank 1's faults injected. Writes what each printed, its
+    wall, its launches and its codec batch sizes, the exchange backend and
+    this rank's share of the mesh sort to ``rank{rank}.json``."""
     import io
+
+    import torch.distributed as dist
 
     from ibu_tpu_torch.__main__ import main as cli_main
     from ibu_tpu_torch.parallel import multihost as MH
     from ibu_tpu_torch.parallel import sort as MS
 
+    commands = json.loads((workdir / "commands.json").read_text())
+    os.environ["IBU_AUTO_ENGINE"] = "device"
     flags = ["--distributed", "--coordinator", f"file://{workdir / 'store'}",
              "--num-processes", str(world), "--process-id", str(rank)]
-    if device:
-        flags += ["--device", device]
-    shares = []
-    inner = MS._sample_sort
+    shares, sizes = [], []
+    inner_sort = MS._sample_sort
+    inner_encode, inner_decode = PL.encode_batch, PL.decode_batch
 
     def spy(*args, **kwargs):
-        run, matrix = inner(*args, **kwargs)
+        run, matrix = inner_sort(*args, **kwargs)
         shares.append(int(matrix[:, rank].sum()))
         return run, matrix
 
-    MS._sample_sort = spy
-    result: dict = {}
-    real_runs = native.sort_chunks_range
+    def encode_spy(bc, umi, idx, *args, **kwargs):
+        sizes.append(len(idx))
+        return inner_encode(bc, umi, idx, *args, **kwargs)
+
+    def decode_spy(records, *args, **kwargs):
+        sizes.append(len(records))
+        return inner_decode(records, *args, **kwargs)
 
     def boom(*args, **kwargs):
         raise OSError(f"injected failure on rank {rank}")
 
-    for key, argv, pod_engine in cohort_commands(src, workdir) + [
-            ("fail", ["sort", src, str(workdir / "fail.ibu"), "--engine", "pod"], "host")]:
-        if key == "fail" and rank == 1:
-            native.sort_chunks_range = boom
+    MS._sample_sort, PL.encode_batch, PL.decode_batch = spy, encode_spy, decode_spy
+    faults = {"run sort": (native, "sort_chunks_range"), "write": (MH, "_pwrite_all")}
+    result: dict = {}
+    for cmd in commands:
+        key, fault = cmd["key"], cmd["fault"]
+        if fault and rank == 1:
+            owner, name = faults[fault]
+            real = getattr(owner, name)
+            setattr(owner, name, boom)
         os.environ.pop("IBU_POD_SORT_ENGINE", None)
-        if pod_engine:
-            os.environ["IBU_POD_SORT_ENGINE"] = pod_engine
+        if cmd["pod"]:
+            os.environ["IBU_POD_SORT_ENGINE"] = cmd["pod"]
         out, err = io.StringIO(), io.StringIO()
+        reset_launches()
+        sizes.clear()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli_main(argv + flags)
+            rc = cli_main(cmd["argv"] + flags + (
+                ["--device", device] if device and cmd["argv"][0] != "filter" else []))
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         result[key] = {"rc": rc, "out": out.getvalue(), "err": err.getvalue(),
-                       "wall": time.perf_counter() - t0}
-        native.sort_chunks_range = real_runs
+                       "wall": time.perf_counter() - t0, "launches": read_launches(),
+                       "sizes": list(sizes)}
+        if fault and rank == 1:
+            setattr(owner, name, real)
+        if key == "export-fastq":  # ingest's input: the shards in rank order
+            if rank == 0:
+                fq = Path(cmd["argv"][2])
+                with open(workdir / "cohort_cat.fastq", "wb") as cat:
+                    for r in range(world):
+                        with open(fq.with_name(f"{fq.stem}.part{r}{fq.suffix}"), "rb") as part:
+                            shutil.copyfileobj(part, cat, 1 << 24)
+            dist.barrier()
     result["backend"] = MH.exchange_backend(device)
     result["share"] = shares
     (workdir / f"rank{rank}.json").write_text(json.dumps(result))
-    import torch.distributed as dist
-
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -1581,25 +1663,72 @@ def cohort_of_one(card, src: str, want: str, workdir: Path) -> None:
     require(MH.process_count() == 1, "the group of one is gone after its leg")
 
 
-def cohort_of_two(card, src: str, want: str, workdir: Path) -> None:
+def cohort_shapes(n: int, fastq_bytes: int) -> dict:
+    """The codec batch sizes each rank of phase 13's cohort gives the record
+    kernels: the export's 2^20-record batches of its record range, and the
+    ingest's 200,000-read batches of the reads whose sequence line starts in
+    its byte range of the concatenated FASTQ (83 bytes a read)."""
+    from ibu_tpu_torch.parallel.host import partition
+
+    def batches(count: int, batch: int) -> list[int]:
+        return [batch] * (count // batch) + ([count % batch] if count % batch else [])
+
+    seq_starts = FASTQ_READ_BYTES * np.arange(n, dtype=np.int64) + 23  # after "@r", 20 digits, \n
+    out = {"export-fastq": [], "ingest-fastq": [], "export ranges": [], "ingest ranges": []}
+    for (lo, hi), (blo, bhi) in zip(partition(n, COHORT_WORLD),
+                                    partition(fastq_bytes, COHORT_WORLD)):
+        out["export-fastq"].append(batches(hi - lo, EXPORT_BATCH))
+        out["export ranges"].append((lo, hi))
+        first, last = np.searchsorted(seq_starts, [blo, bhi])
+        out["ingest-fastq"].append(batches(int(last - first), INGEST_BATCH))
+        out["ingest ranges"].append((int(first), int(last)))
+    return out
+
+
+def cohort_of_two(card, src: str, want: str, wf: dict, workdir: Path) -> dict:
     """Phase 13, leg 2: two ranks on the one card, one launch of two
-    processes (this script as the rank worker), every cohort command equal to
-    the same command in one process. On the card the commands name no
-    device, as a user types them."""
+    processes (this script as the rank worker), every cohort command's
+    output equal to the same command's in one process (or to the file an
+    earlier phase made). On the card the commands name no device, as a user
+    types them. Returns the codec kernels' launches per command and rank."""
     import io
 
     from ibu_tpu_torch.__main__ import main as cli_main
+
+    records = np.asarray(MmapReader(want).records)
+    n = len(records)
+    with open(wf["cells"]) as f:
+        cells = [line for line in f if line.strip()]
+    (workdir / "cells1000.txt").write_text("".join(cells[:FILTER_BARCODES]))
+    lie = Header.new(BC_LEN, UMI_LEN)
+    lie.set_sorted()
+    with open(src, "rb") as f, open(workdir / "lie.ibu", "wb") as g:
+        f.seek(len(lie.as_bytes()))
+        g.write(lie.as_bytes())
+        shutil.copyfileobj(f, g, 1 << 24)
+    commands = cohort_commands(src, want, wf, workdir)
+    (workdir / "commands.json").write_text(json.dumps(commands))
+
+    # the record kernels at the batch shapes the ranks will give them
+    shapes = cohort_shapes(n, FASTQ_READ_BYTES * n)
+    parts = {"export batch": records[:EXPORT_BATCH], "ingest batch": records[:INGEST_BATCH]}
+    for r in range(COHORT_WORLD):
+        lo, hi = shapes["export ranges"][r]
+        parts[f"export rank {r} tail"] = records[hi - shapes["export-fastq"][r][-1]:hi]
+        lo, hi = shapes["ingest ranges"][r]
+        parts[f"ingest rank {r} last"] = records[hi - shapes["ingest-fastq"][r][-1]:hi]
+    hold_record_kernels(card, parts, "cohort")
 
     device = [] if card.type == "cuda" else ["--device", "cpu"]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--cohort-rank", str(r), "--cohort-world",
-         str(COHORT_WORLD), "--cohort-src", src, "--cohort-dir", str(workdir),
+         str(COHORT_WORLD), "--cohort-dir", str(workdir),
          *(["--cohort-device", "cpu"] if device else [])],
         cwd=ROOT, env=cli_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(COHORT_WORLD)]
     try:
-        logs = [p.communicate(timeout=300)[0].decode(errors="replace") for p in procs]
+        logs = [p.communicate(timeout=600)[0].decode(errors="replace") for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1612,43 +1741,130 @@ def cohort_of_two(card, src: str, want: str, workdir: Path) -> None:
         require(p.returncode == 0, f"cohort rank {r} exits 0")
     ranks = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(COHORT_WORLD)]
     for r, res in enumerate(ranks):
-        log(f"cohort rank {r}: exchange backend {res['backend']}; share of the mesh sort "
-            f"{res['share']} records; walls " + ", ".join(
-                f"{k} {v['wall']:.3f} s" for k, v in res.items() if isinstance(v, dict)))
+        log(f"cohort rank {r}: exchange backend {res['backend']}; shares of the mesh sorts "
+            f"{res['share']} records")
         require(res["backend"] == "gloo", "two ranks on one card exchange over Gloo")
     require(sum(ranks[r]["share"][0] for r in range(COHORT_WORLD)) == len(MmapReader(src)),
             "the ranks' shares add up to the file")
 
-    for key, argv, pod_engine in cohort_commands(src, workdir):
+    singles: dict = {}
+    launches: dict = {}
+    for cmd in commands:
+        key, argv = cmd["key"], cmd["argv"]
+        if cmd["fault"] or key == "lying flag":
+            continue
+        rank0, rank1 = ranks[0][key], ranks[1][key]
+        require(rank0["rc"] == rank1["rc"] == 0 and rank1["out"] == "",
+                f"cohort {key}: both ranks exit 0, rank 1 prints nothing on stdout")
+        if key == "count":  # one process's line is phase 12's, its wall phase 10's
+            line, prefix = wf["count_line"]
+            require(rank0["out"] == line.replace(prefix, argv[2]),
+                    f"cohort count: rank 0 prints phase 12's line ({rank0['out'][:200]!r})")
+            require(count_trio(argv[2]) == count_trio(wf["counts"]),
+                    "cohort count: the trio equals phase 10's host trio byte for byte")
+            singles[key] = wf["count_wall"]
+            continue
         os.environ.pop("IBU_POD_SORT_ENGINE", None)
-        if pod_engine:
-            os.environ["IBU_POD_SORT_ENGINE"] = pod_engine
-        single = list(argv) + device
-        if argv[0] == "sort":  # its own output file
-            single[2] = argv[2].replace(".ibu", "_single.ibu")
+        if cmd["pod"]:
+            os.environ["IBU_POD_SORT_ENGINE"] = cmd["pod"]
+        single = list(argv) + (device if argv[0] != "filter" else [])
+        writes = argv[0] not in ("stats", "histogram")
+        if writes:  # its own output file
+            single[2] = argv[2].replace(".ibu", "_single.ibu").replace(".fastq", "_single.fastq")
+        if key == "ingest-fastq":  # one process's export is its input
+            single[1] = str(workdir / "cohort_single.fastq")
         out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        with forced_engine("device"), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
             rc = cli_main(single)
-        log(f"wall: cohort single process {key}: {time.perf_counter() - t0:.3f} s")
+        singles[key] = time.perf_counter() - t0
         os.environ.pop("IBU_POD_SORT_ENGINE", None)
-        rank0, rank1 = ranks[0][key], ranks[1][key]
         want_out = out.getvalue().replace("_single.ibu", ".ibu")
-        require(rc == rank0["rc"] == rank1["rc"] == 0 and rank0["out"] == want_out
-                and rank1["out"] == "", f"cohort {key}: rank 0 prints what one process prints "
-                f"({rank0['out'][:200]!r} against {want_out[:200]!r}), rank 1 nothing")
+        require(rc == 0 and rank0["out"] == want_out, f"cohort {key}: rank 0 prints what one "
+                f"process prints ({rank0['out'][:200]!r} against {want_out[:200]!r})")
         if key == "histogram":
             tail = [ln for ln in rank0["err"].splitlines() if ln.startswith("# ")]
             require(tail == [ln for ln in err.getvalue().splitlines() if ln.startswith("# ")],
                     "cohort histogram: the same totals line")
-        if argv[0] == "sort":
+        if key in ("export-fastq", "ingest-fastq"):
+            launches[key] = [ranks[r][key]["launches"] for r in range(COHORT_WORLD)]
+            kernel = "decode_records" if key == "export-fastq" else "encode_records"
+            for r in range(COHORT_WORLD):
+                got = ranks[r][key]
+                require(got["sizes"] == shapes[key][r], f"cohort {key} rank {r}: codec batches "
+                        f"{got['sizes']} are the predicted {shapes[key][r]}")
+                require(got["launches"][kernel] == len(shapes[key][r]),
+                        f"cohort {key} rank {r}: {kernel} launched once per batch: "
+                        f"{got['launches']}")
+        if key == "export-fastq":
+            fq = Path(argv[2])
+            lo_hi = shapes["export ranges"]
+            for r in range(COHORT_WORLD):
+                lines = [ln for ln in ranks[r][key]["err"].splitlines() if ln.startswith("# ")]
+                shard = fq.with_name(f"{fq.stem}.part{r}{fq.suffix}")
+                head = [f"# exported {lo_hi[r][1] - lo_hi[r][0]} reads -> {shard} (this host's "
+                        "shard)"]
+                tail = [f"# pod total: {n} reads across rank-ordered part* shards"] if r == 0 else []
+                require(lines == head + tail, f"cohort export-fastq rank {r} prints {lines}")
+                os.unlink(shard)
+            same_file(str(workdir / "cohort_cat.fastq"), single[2],
+                      "cohort export-fastq: the shards in rank order")
+        elif key == "ingest-fastq":
+            back = records.copy()
+            back["index"] = np.arange(n, dtype=np.uint64)
+            header = Header.new(BC_LEN, UMI_LEN)
+            header.set_sorted()
+            require(Path(argv[2]).read_bytes() == header.as_bytes() + back.tobytes(),
+                    "cohort ingest-fastq: the cohort's file with arange as its index column, "
+                    "byte for byte")
+            del back
+            same_file(single[2], argv[2], "cohort ingest-fastq single process")
+            os.unlink(argv[2])
+        elif argv[0] == "sort":
             same_file(single[2], want, f"cohort {key} single process")
             same_file(argv[2], want, f"cohort {key}")
+        elif key == "correct":
+            same_file(single[2], wf["corrected"], "cohort correct single process")
+            same_file(argv[2], wf["corrected"], "cohort correct")
+        elif key == "dedup unsorted":
+            same_file(single[2], wf["molecules"], "cohort dedup --assume-sorted no single process")
+            same_file(argv[2], wf["molecules"], "cohort dedup --assume-sorted no")
+        elif writes:
+            same_file(argv[2], single[2], f"cohort {key}")
+            os.unlink(single[2])
+
     fail = [res["fail"] for res in ranks]
-    log(f"cohort: injected failure on rank 1: exits {[f['rc'] for f in fail]}, "
+    log(f"cohort: injected run sort failure on rank 1: exits {[f['rc'] for f in fail]}, "
         f"last lines {[f['err'].splitlines()[-1:] for f in fail]}")
     require(all(f["rc"] != 0 for f in fail) and not (workdir / "fail.ibu").exists(),
             "a failure on rank 1 ends both ranks, and no output is left")
+    fail = [res["fail count"] for res in ranks]
+    log(f"cohort: injected write failure on rank 1 in count: exits {[f['rc'] for f in fail]}, "
+        f"last lines {[f['err'].splitlines()[-1:] for f in fail]}")
+    left = [p.name for p in workdir.iterdir() if p.name.startswith("fail_counts")]
+    require(all(f["rc"] != 0 for f in fail) and not left,
+            f"a write failure on rank 1 ends both ranks of count, and no output is left: {left}")
+    lying = [res["lying flag"] for res in ranks]
+    log(f"cohort: dedup of a lying sorted flag: exits {[f['rc'] for f in lying]}, "
+        f"last lines {[f['err'].splitlines()[-1:] for f in lying]}")
+    require(all(f["rc"] == 1 and "not in sorted order" in f["err"].splitlines()[-1]
+                for f in lying) and not (workdir / "lie_out.ibu").exists(),
+            "a lying sorted flag ends both ranks of dedup with exit 1, and no output is left")
+    os.unlink(workdir / "lie.ibu")
+    os.unlink(workdir / "cohort_single.fastq")
+
+    log("cohort: walls, two ranks against one process on the same file (one run each; count's "
+        "one process is phase 10's count_matrix host):")
+    for key, one in singles.items():
+        two = max(ranks[r][key]["wall"] for r in range(COHORT_WORLD))
+        log(f"cohort wall: {key}: two ranks {two:.3f} s (rank 0 {ranks[0][key]['wall']:.3f}, "
+            f"rank 1 {ranks[1][key]['wall']:.3f}), one process {one:.3f} s, ratio "
+            f"{two / one:.2f}")
+    for key in ("fail", "fail count", "lying flag"):
+        log(f"cohort wall: {key}: rank 0 {ranks[0][key]['wall']:.3f} s, rank 1 "
+            f"{ranks[1][key]['wall']:.3f} s")
+    return launches
 
 
 def loader_leg(card, src: str) -> None:
@@ -1722,10 +1938,11 @@ def cohort_records(cells: str, path: str) -> None:
         rng.integers(0, GENE_INDEX, N_COHORT, dtype=np.uint64)))
 
 
-def cohort_phase(card, wf: dict, workdir: Path) -> None:
+def cohort_phase(card, wf: dict, workdir: Path) -> dict:
     """Phase 13: the cohort layer at 10M bc16/umi12 records drawn from phase
     10's called cells: a world of one on NCCL, two ranks on the one card
-    through the CLI, and the loader on the card."""
+    through the CLI, and the loader on the card. Returns the codec kernels'
+    launches per cohort command and rank."""
     t_phase = time.perf_counter()
     workdir = workdir.resolve()  # the file:// rendezvous needs an absolute path
     src = str(workdir / "cohort.ibu")
@@ -1740,11 +1957,12 @@ def cohort_phase(card, wf: dict, workdir: Path) -> None:
     cohort_of_one(card, src, want, workdir)
     log(f"cohort: leg 1 (world of one, NCCL) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    cohort_of_two(card, src, want, workdir)
+    launches = cohort_of_two(card, src, want, wf, workdir)
     log(f"cohort: leg 2 (two ranks on one card) took {time.perf_counter() - t0:.1f} s")
     os.unlink(want)
     os.unlink(src)
     log(f"cohort: phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -1804,9 +2022,10 @@ def main() -> int:
         os.environ.pop("IBU_AUTO_ENGINE", None)
         log(f"launches on the FASTQ path (device legs): {fastq_launches}")
         log(f"elapsed before the CLI phase: {time.perf_counter() - t_start:.1f} s")
-        cli_launches = cli_phase(card, wf_files, fq_files, dirs["cli"])
+        cli_launches, count_line = cli_phase(card, wf_files, fq_files, dirs["cli"])
         log(f"elapsed before the cohort phase: {time.perf_counter() - t_start:.1f} s")
-        cohort_phase(card, wf_files, dirs["cohort"])
+        cohort_launches = cohort_phase(card, {**wf_files, "count_line": count_line},
+                                       dirs["cohort"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         os.environ.pop("IBU_AUTO_ENGINE", None)
@@ -1816,6 +2035,9 @@ def main() -> int:
             entry["fastq_launches"] = fastq_launches[name]
             entry["cli_launches"] = {cmd: got[name] for cmd, got in cli_launches.items()
                                      if got[name]}
+            entry["cohort_launches"] = {cmd: [got[name] for got in per_rank]
+                                        for cmd, per_rank in cohort_launches.items()
+                                        if any(got[name] for got in per_rank)}
     log(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
@@ -1837,10 +2059,8 @@ if __name__ == "__main__":
         ap = argparse.ArgumentParser()
         for flag in ("--cohort-rank", "--cohort-world"):
             ap.add_argument(flag, type=int, required=True)
-        ap.add_argument("--cohort-src", required=True)
         ap.add_argument("--cohort-dir", type=Path, required=True)
         ap.add_argument("--cohort-device", default=None)
         a = ap.parse_args()
-        sys.exit(cohort_rank(a.cohort_rank, a.cohort_world, a.cohort_src, a.cohort_dir,
-                             a.cohort_device))
+        sys.exit(cohort_rank(a.cohort_rank, a.cohort_world, a.cohort_dir, a.cohort_device))
     sys.exit(main())

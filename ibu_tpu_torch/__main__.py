@@ -34,7 +34,8 @@ command prints one line on stderr and exits 2: it never runs on the CPU
 unasked. ``sort`` uses the native external merge
 sort unless given ``--engine device``.
 
-``stats``, ``histogram`` and ``sort --engine mesh|pod`` also run across a
+``stats``, ``histogram``, ``sort --engine mesh|pod``, ``filter``, ``count``,
+``correct``, ``dedup``, ``ingest-fastq`` and ``export-fastq`` also run across a
 ``torch.distributed`` cohort, one rank per process and one card per rank
 (:mod:`ibu_tpu_torch.parallel.multihost`): launch the same command as every
 rank with ``--distributed`` and the work shards across the ranks::
@@ -46,11 +47,10 @@ rank with ``--distributed`` and the work shards across the ranks::
         --coordinator hostA:9876 --num-processes 2 --process-id 1  # rank 1
 
 ``--coordinator`` also takes any ``torch.distributed`` init URL
-(``file:///shared/path``). Results print once (rank 0); ``sort`` writes the shared
-output file cooperatively (every rank pwrites its own byte range). ``filter``,
-``count``, ``correct``, ``dedup``, ``ingest-fastq`` and ``export-fastq`` do not
-run across a cohort yet: the parser refuses ``--distributed`` and its three
-flags there (exit code 2).
+(``file:///shared/path``). Results print once (rank 0); the commands that write
+an IBU file or the count trio write the shared output cooperatively (every
+rank pwrites its own byte range), and ``export-fastq`` writes one shard per
+rank (``reads.part{rank}.fastq``), each rank naming its own.
 """
 
 from __future__ import annotations
@@ -417,7 +417,15 @@ def cmd_filter(args) -> int:
     _require_plain(args.input, "filter")  # before the bc_len mmap below
     bc_len = MmapReader(args.input).header().bc_len
     allow = _parse_barcode_list(args.barcodes, bc_len)
-    stats = filter_file(args.input, args.output, allow, invert=args.invert)
+    if args.distributed:
+        _maybe_init_distributed(args)
+        from ibu_tpu_torch.parallel.multihost import multihost_filter_file
+
+        stats = multihost_filter_file(args.input, args.output, allow, invert=args.invert)
+        if not _is_rank0():
+            return 0
+    else:
+        stats = filter_file(args.input, args.output, allow, invert=args.invert)
     mode = "blocklist" if args.invert else "allowlist"
     print(
         f"filter {args.input} -> {args.output}: kept {stats['kept']} of "
@@ -476,10 +484,22 @@ def cmd_cells(args) -> int:
 
 
 def cmd_count(args) -> int:
-    from ibu_tpu_torch.pipelines import count_matrix
+    if args.distributed:
+        if args.engine == "device":
+            print("--distributed shards the host counting pass; drop "
+                  "--engine device", file=sys.stderr)
+            return 2
+        _maybe_init_distributed(args)
+        from ibu_tpu_torch.parallel.multihost import multihost_count_matrix
 
-    stats = count_matrix(args.input, args.prefix, dedup=not args.raw_reads,
-                         engine=args.engine, device=args.device)
+        stats = multihost_count_matrix(args.input, args.prefix, dedup=not args.raw_reads)
+        if not _is_rank0():
+            return 0
+    else:
+        from ibu_tpu_torch.pipelines import count_matrix
+
+        stats = count_matrix(args.input, args.prefix, dedup=not args.raw_reads,
+                             engine=args.engine, device=args.device)
     what = "reads" if args.raw_reads else "molecules"
     print(
         f"count {args.input} -> {args.prefix}.mtx: "
@@ -496,8 +516,17 @@ def cmd_correct(args) -> int:
     _require_plain(args.input, "correct")  # before the bc_len mmap below
     bc_len = MmapReader(args.input).header().bc_len
     allow = _parse_barcode_list(args.barcodes, bc_len)
-    stats = correct_file(args.input, args.output, allow,
-                         keep_unmatched=args.keep_unmatched, device=args.device)
+    if args.distributed:
+        _maybe_init_distributed(args)
+        from ibu_tpu_torch.parallel.multihost import multihost_correct_file
+
+        stats = multihost_correct_file(args.input, args.output, allow,
+                                       keep_unmatched=args.keep_unmatched, device=args.device)
+        if not _is_rank0():
+            return 0
+    else:
+        stats = correct_file(args.input, args.output, allow,
+                             keep_unmatched=args.keep_unmatched, device=args.device)
     print(
         f"correct {args.input} -> {args.output}: {stats['exact']} exact, "
         f"{stats['corrected']} corrected, {stats['dropped']} "
@@ -508,10 +537,19 @@ def cmd_correct(args) -> int:
 
 
 def cmd_dedup(args) -> int:
-    from ibu_tpu_torch.pipelines import dedup_file
-
     assume = {"auto": None, "yes": True, "no": False}[args.assume_sorted]
-    stats = dedup_file(args.input, args.output, assume_sorted=assume, device=args.device)
+    if args.distributed:
+        _maybe_init_distributed(args)
+        from ibu_tpu_torch.parallel.multihost import multihost_dedup_file
+
+        stats = multihost_dedup_file(args.input, args.output, device=args.device,
+                                     assume_sorted=assume)
+        if not _is_rank0():
+            return 0
+    else:
+        from ibu_tpu_torch.pipelines import dedup_file
+
+        stats = dedup_file(args.input, args.output, assume_sorted=assume, device=args.device)
     print(
         f"dedup {args.input} -> {args.output}: {stats['records']} reads -> "
         f"{stats['molecules']} molecules across {stats['barcodes']} barcodes"
@@ -580,14 +618,34 @@ def cmd_repair(args) -> int:
 
 
 def cmd_ingest_fastq(args) -> int:
-    from ibu_tpu_torch.pipelines import ingest_fastq
+    if args.distributed:
+        _maybe_init_distributed(args)
+        from ibu_tpu_torch.parallel.multihost import multihost_ingest_fastq
 
-    n = ingest_fastq(args.input, args.output, args.bc_len, args.umi_len, device=args.device)
+        n = multihost_ingest_fastq(args.input, args.output, args.bc_len, args.umi_len,
+                                   device=args.device)
+        if not _is_rank0():
+            return 0
+    else:
+        from ibu_tpu_torch.pipelines import ingest_fastq
+
+        n = ingest_fastq(args.input, args.output, args.bc_len, args.umi_len, device=args.device)
     print(f"# ingested {n} reads -> {args.output} (sorted)", file=sys.stderr)
     return 0
 
 
 def cmd_export_fastq(args) -> int:
+    if args.distributed:
+        _maybe_init_distributed(args)
+        from ibu_tpu_torch.parallel.multihost import multihost_export_fastq
+
+        total, mine, shard = multihost_export_fastq(args.input, args.output, qual=args.qual,
+                                                    device=args.device)
+        print(f"# exported {mine} reads -> {shard} (this host's shard)", file=sys.stderr)
+        if _is_rank0():
+            print(f"# pod total: {total} reads across "
+                  "rank-ordered part* shards", file=sys.stderr)
+        return 0
     from ibu_tpu_torch.pipelines import export_fastq
 
     n = export_fastq(args.input, args.output, qual=args.qual, device=args.device)
@@ -734,6 +792,7 @@ def main(argv=None) -> int:
         "--invert", action="store_true",
         help="keep records whose barcode is NOT in the list",
     )
+    _add_distributed_args(p)
     p.set_defaults(fn=cmd_filter)
 
     p = sub.add_parser(
@@ -784,6 +843,7 @@ def main(argv=None) -> int:
                    help="device: per-batch 6-key sort + segment count on "
                         "the CUDA card (sorted inputs, dedup mode only)")
     _add_device_arg(p)
+    _add_distributed_args(p)
     p.set_defaults(fn=cmd_count)
 
     p = sub.add_parser(
@@ -804,6 +864,7 @@ def main(argv=None) -> int:
              "of dropping them",
     )
     _add_device_arg(p)
+    _add_distributed_args(p)
     p.set_defaults(fn=cmd_correct)
 
     p = sub.add_parser(
@@ -821,6 +882,7 @@ def main(argv=None) -> int:
              "pass); no: force a pre-sort (the fix for a lying flag)",
     )
     _add_device_arg(p)
+    _add_distributed_args(p)
     p.set_defaults(fn=cmd_dedup)
 
     p = sub.add_parser("ingest-fastq",
@@ -830,6 +892,7 @@ def main(argv=None) -> int:
     p.add_argument("--bc-len", type=int, default=16)
     p.add_argument("--umi-len", type=int, default=12)
     _add_device_arg(p)
+    _add_distributed_args(p)
     p.set_defaults(fn=cmd_ingest_fastq)
 
     p = sub.add_parser("export-fastq",
@@ -838,6 +901,7 @@ def main(argv=None) -> int:
     p.add_argument("output", help="FASTQ output (.gz compresses)")
     p.add_argument("--qual", default="I", help="constant quality character")
     _add_device_arg(p)
+    _add_distributed_args(p)
     p.set_defaults(fn=cmd_export_fastq)
 
     args = ap.parse_args(argv)

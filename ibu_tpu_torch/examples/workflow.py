@@ -43,12 +43,15 @@ def make_ground_truth(rng, cells, genes, reads, error_rate):
     umi = rng.integers(0, 1 << 12, reads).astype(np.uint64)
     gene = rng.integers(0, genes, reads).astype(np.uint64)
     bc = allow[cell_of]
-    # planted truth: distinct (bc, umi, gene) triples per (bc, gene)
-    triples = np.unique(
-        np.stack([bc, umi, gene], axis=1), axis=0
-    )
-    pairs, truth_counts = np.unique(triples[:, [0, 2]], axis=0,
-                                    return_counts=True)
+    # planted truth: distinct (bc, umi, gene) triples per (bc, gene). allow
+    # is sorted and distinct, so the packed key (cell, gene, umi) orders the
+    # triples as their (bc, gene, umi) rows do
+    if cells * genes >= 1 << 52:
+        raise ValueError(f"cells * genes must be under 2**52, got {cells} * {genes}")
+    key = (cell_of.astype(np.uint64) * np.uint64(genes) + gene) << np.uint64(12) | umi
+    pair_keys, truth_counts = np.unique(np.unique(key) >> np.uint64(12), return_counts=True)
+    pair_bc = allow[pair_keys // np.uint64(genes)]
+    pair_gene = pair_keys % np.uint64(genes)
     # inject errors: flip ONE base of the barcode on a fraction of reads
     nerr = int(error_rate * reads)
     pick = rng.choice(reads, size=nerr, replace=False)
@@ -61,7 +64,7 @@ def make_ground_truth(rng, cells, genes, reads, error_rate):
     bc_rows = C.np_unpack(bc_err, BC_LEN)
     umi_rows = C.np_unpack(umi, UMI_LEN)
     return allow, bc_rows, umi_rows, gene, dict(
-        zip(map(tuple, pairs.tolist()), truth_counts.tolist())
+        zip(zip(pair_bc.tolist(), pair_gene.tolist()), truth_counts.tolist())
     )
 
 
@@ -71,9 +74,14 @@ def entries_outside_truth(mol_path: str, truth: dict) -> tuple[int, list]:
     from ibu_tpu_torch import MmapReader
 
     recs = np.asarray(MmapReader(mol_path).records)
-    pairs = np.unique(np.stack([recs["barcode"], recs["index"]], axis=1), axis=0)
-    missing = [p for p in map(tuple, pairs.tolist()) if p not in truth]
-    return len(pairs), missing
+    bc, idx = recs["barcode"], recs["index"]
+    order = np.lexsort((idx, bc))
+    bc, idx = bc[order], idx[order]
+    first = np.ones(len(bc), dtype=bool)
+    first[1:] = (bc[1:] != bc[:-1]) | (idx[1:] != idx[:-1])
+    pairs = zip(bc[first].tolist(), idx[first].tolist())
+    missing = [p for p in pairs if p not in truth]
+    return int(first.sum()), missing
 
 
 def main(argv=None) -> int:

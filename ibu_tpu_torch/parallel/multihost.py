@@ -23,6 +23,17 @@ Two process groups carry the cohort's traffic:
   rank (:func:`exchange_backend`). Where two ranks share a card (NCCL refuses
   that), device tensors go over Gloo through pinned host buffers.
 
+The engines: statistics, the barcode histogram and any ``MapReduce``
+(per-rank states merged at the end), the sorted rewrite (the mesh sample sort
+or the shared-filesystem external sort), and the file engines, each rank
+streaming its own range and ``pwrite``-ing its part of one shared output at
+offsets from one gather: dedup, filter and correct (on
+:func:`_multihost_rewrite`), the count matrix (its barcode ranges exchanged
+through part files) and FASTQ ingest; FASTQ export writes one shard per rank.
+Gathered lanes are int64; words compared after a gather (the rewrite's
+boundary triples, the count's barcode samples) travel as their bits and are
+viewed back to uint64 first, since a 32-base barcode sets bit 63.
+
 A process that never joined a group is a world of size 1, and every engine
 then takes its single-process path, as the JAX package's do when
 ``jax.process_count() == 1``. ``process_local_placer`` and
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import os
 import socket
+import struct
 import sys
 from typing import Iterator
 
@@ -41,6 +53,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ibu_tpu_torch.constructs.header import HEADER_SIZE, Header
+from ibu_tpu_torch.constructs.record import RECORD_SIZE
 from ibu_tpu_torch.io.mmap import STREAM_BATCH_RECORDS, MmapReader
 from ibu_tpu_torch.parallel.device import STATS_MAP_REDUCE, finalize_stats
 from ibu_tpu_torch.parallel.host import partition
@@ -449,8 +463,6 @@ def _choose_pod_sort_engine(
 
 
 def _sorted_header(header):
-    from ibu_tpu_torch.constructs.header import Header
-
     out = Header.new(header.bc_len, header.umi_len)
     out.flags = header.flags
     out.set_sorted()
@@ -460,9 +472,6 @@ def _sorted_header(header):
 def _create_output(out_path: str, header, n: int) -> None:
     """Rank 0 pre-creates the full-size output behind a checkpoint, so a
     quota or permission error fails every rank together."""
-    from ibu_tpu_torch.constructs.header import HEADER_SIZE
-    from ibu_tpu_torch.constructs.record import RECORD_SIZE
-
     failed = None
     try:
         if process_index() == 0:
@@ -474,17 +483,21 @@ def _create_output(out_path: str, header, n: int) -> None:
     _cohort_checkpoint(failed, "output creation")
 
 
-def _finish_write(failed: BaseException | None, stage: str, out_path: str) -> None:
+def _finish_write(
+    failed: BaseException | None, stage: str, *out_paths: str, extra=()
+) -> np.ndarray:
     """The last checkpoint of a cooperative write: a failure on any rank
-    unlinks the output, so no full-size sorted-flagged file with zero
-    records in its dead ranges survives."""
+    unlinks the outputs on every rank, so no full-size sorted-flagged file
+    with zero records in its dead ranges survives. Returns the gathered
+    ``extra`` lanes, as :func:`_cohort_checkpoint` does."""
     try:
-        _cohort_checkpoint(failed, stage)
+        return _cohort_checkpoint(failed, stage, extra)
     except BaseException:
-        try:
-            os.unlink(out_path)
-        except OSError:
-            pass
+        for path in out_paths:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
         raise
 
 
@@ -512,8 +525,7 @@ def _multihost_sort_host(
     choice.
     """
     from ibu_tpu_torch import native
-    from ibu_tpu_torch.constructs.header import HEADER_SIZE
-    from ibu_tpu_torch.constructs.record import RECORD_DTYPE, RECORD_SIZE
+    from ibu_tpu_torch.constructs.record import RECORD_DTYPE
     from ibu_tpu_torch.pipelines import _require_plain
 
     if not native.available():
@@ -637,8 +649,6 @@ def _multihost_sort_mesh(
       per-rank counts give; rank 0 pre-creates the file (header + full-size
       truncate) behind a checkpoint, so every byte is written exactly once.
     """
-    from ibu_tpu_torch.constructs.header import HEADER_SIZE
-    from ibu_tpu_torch.constructs.record import RECORD_SIZE
     from ibu_tpu_torch.ops.u64 import records_to_tensor, to_host
     from ibu_tpu_torch.parallel import sort as MS
     from ibu_tpu_torch.pipelines import _require_plain
@@ -680,3 +690,788 @@ def _multihost_sort_mesh(
     except BaseException as e:
         failed = e
     _finish_write(failed, "the write pass", out_path)
+
+
+def multihost_dedup_file(
+    in_path: str,
+    out_path: str,
+    device: str | torch.device | None = None,
+    assume_sorted: bool | None = None,
+    batch_records: int = 4 * 1024 * 1024,
+) -> dict:
+    """Cohort-wide UMI dedup: one record per distinct (barcode, umi) pair.
+
+    The cohort form of :func:`ibu_tpu_torch.pipelines.dedup_file`. An
+    unsorted input is first sorted by :func:`multihost_sort_file` (on
+    ``device`` with the mesh engine) into ``out_path + ".mhsort.tmp"``; the
+    dedup then partitions the sorted file by the reference rule and each
+    rank streams ONLY its record range:
+
+    * the one-record carry at a range boundary is read directly from the
+      shared mmap (``records[start-1]``), with no communication;
+    * the count pass counts each range's kept records (verifying sort order
+      like the single-process pass), and one gather turns the counts into
+      exact output byte offsets; the order verdict travels in that gather,
+      so a lying sorted flag fails every rank;
+    * rank 0 pre-creates the output behind a checkpoint, then every rank
+      ``pwrite``s its kept records at its offset.
+
+    ``in_path`` and ``out_path`` must be on a filesystem every rank shares.
+    Returns ``{"records", "molecules", "barcodes"}`` on every rank.
+    """
+    from ibu_tpu_torch.pipelines import (
+        _dedup_batch_masks,
+        _lex_nondecreasing,
+        _require_plain,
+        dedup_file,
+    )
+
+    if process_count() == 1:
+        return dedup_file(
+            in_path, out_path, batch_records=batch_records,
+            assume_sorted=assume_sorted, device=device,
+        )
+
+    _require_plain(in_path, "dedup")
+    reader = MmapReader(in_path)
+    header = reader.header()
+    # every rank reads the same header bytes and was launched with the same
+    # flags, so this branch is cohort-uniform
+    sorted_in = header.sorted() if assume_sorted is None else assume_sorted
+
+    tmp = None
+    try:
+        if not sorted_in:
+            tmp = out_path + ".mhsort.tmp"  # deterministic: shared by every rank
+            multihost_sort_file(in_path, tmp, device=device)
+            reader = MmapReader(tmp)
+        n = reader.len()
+        records = reader.records
+        start, end = local_record_range(n)
+
+        def batches_with_prev():
+            prev = None
+            if start > 0 and end > start:
+                r = records[start - 1]
+                prev = (int(r["barcode"]), int(r["umi"]), int(r["index"]))
+            for pos in range(start, end, batch_records):
+                batch = np.asarray(records[pos:min(pos + batch_records, end)])
+                bc, umi, idx = batch["barcode"], batch["umi"], batch["index"]
+                if not _lex_nondecreasing(bc, umi, idx, prev):
+                    if tmp is not None:
+                        raise ValueError(
+                            "internal error: the pod mesh sort produced "
+                            f"out-of-order output near record {pos} of "
+                            f"{tmp}; please report this"
+                        )
+                    raise ValueError(
+                        f"{in_path}: records are not in sorted order near "
+                        f"record {pos} despite the sorted flag; re-sort, "
+                        "or pass assume_sorted=False (CLI: "
+                        "--assume-sorted no)"
+                    )
+                keep, bc_first = _dedup_batch_masks(bc, umi, prev)
+                prev = (int(bc[-1]), int(umi[-1]), int(idx[-1]))
+                yield batch, keep, bc_first
+
+        # the order verdict travels inside the count gather: a rank raising
+        # here alone would leave the others waiting in it
+        kept = bc_firsts = 0
+        failed: BaseException | None = None
+        order_error: str | None = None
+        try:
+            for _, keep, bc_first in batches_with_prev():
+                kept += int(keep.sum())
+                bc_firsts += int(bc_first.sum())
+        except ValueError as e:
+            order_error = str(e)
+        except BaseException as e:
+            failed = e
+        gathered = _cohort_checkpoint(
+            failed, "the count pass", (kept, bc_firsts, int(order_error is not None))
+        )
+        if gathered[:, 2].any():
+            raise ValueError(
+                order_error
+                or "records are not in sorted order in another process's "
+                "record range (see that rank's error for the position)"
+            )
+        total_kept = int(gathered[:, 0].sum())
+        my_offset = int(gathered[: process_index(), 0].sum())
+
+        _create_output(out_path, _sorted_header(header), total_kept)
+        pos_out = HEADER_SIZE + RECORD_SIZE * my_offset
+        try:
+            fd = os.open(out_path, os.O_WRONLY)
+            try:
+                for batch, keep, _ in batches_with_prev():
+                    data = np.ascontiguousarray(batch[keep]).view(np.uint8)
+                    _pwrite_all(fd, data, pos_out)
+                    pos_out += data.nbytes
+            finally:
+                os.close(fd)
+        except BaseException as e:
+            failed = e
+        _finish_write(failed, "the write pass", out_path)
+    finally:
+        if tmp is not None and process_index() == 0:
+            # guarded: an OSError raised from finally would replace the
+            # exception in flight
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+
+    return {
+        "records": n,
+        "molecules": total_kept,
+        "barcodes": int(gathered[:, 1].sum()),
+    }
+
+
+def _multihost_rewrite(
+    reader: MmapReader,
+    out_path: str,
+    out_header,
+    transform,
+    batch_records: int,
+    stat_keys: tuple = (),
+    track_order: bool = False,
+    spool: bool = False,
+):
+    """Range-partitioned streaming record rewrite across the cohort.
+
+    The shared engine under :func:`multihost_filter_file` and
+    :func:`multihost_correct_file`: the input partitions by the reference
+    rule, each rank streams only its range through ``transform(batch) ->
+    (out_records, {stat: int})``, one gather of kept counts (and stat sums)
+    becomes exact output byte offsets, and every rank ``pwrite``s its output
+    behind a create checkpoint.
+
+    ``spool=False``: ``transform`` must be deterministic; it runs twice
+    (count pass, then write pass) so memory stays bounded at one batch,
+    right when the transform is cheap numpy (filter). ``spool=True``: the
+    count pass writes the transformed records to a rank-local temporary file
+    and the write pass copies it to the final offset, right when the
+    transform dominates (correct's Hamming probe would otherwise run twice
+    per record).
+
+    With ``track_order=True`` the return includes whether the WHOLE written
+    stream is lexicographically nondecreasing (each rank verifies its own
+    stream; the rank-boundary pairs are checked after the gather, as
+    unsigned words), so the caller can patch the sorted flag.
+
+    Returns ``(total_kept, {stat: total}, globally_sorted | None)``.
+    """
+    import tempfile
+
+    from ibu_tpu_torch.pipelines import _lex_nondecreasing
+
+    n = reader.len()
+    records = reader.records
+    start, end = local_record_range(n)
+
+    def out_batches():
+        for pos in range(start, end, batch_records):
+            yield transform(np.asarray(records[pos:min(pos + batch_records, end)]))
+
+    spool_file = None
+    kept = 0
+    stats = dict.fromkeys(stat_keys, 0)
+    local_sorted = True
+    first = last = None
+    failed: BaseException | None = None
+    try:
+        try:
+            if spool:
+                spool_file = tempfile.TemporaryFile(prefix="ibu_mh_rewrite_", suffix=".spool")
+            for out, inc in out_batches():
+                kept += len(out)
+                for k in stat_keys:
+                    stats[k] += int(inc.get(k, 0))
+                if spool_file is not None and len(out):
+                    spool_file.write(np.ascontiguousarray(out).tobytes())
+                if track_order and len(out):
+                    if local_sorted and not _lex_nondecreasing(
+                        out["barcode"], out["umi"], out["index"], last
+                    ):
+                        local_sorted = False
+                    tail = out[-1]
+                    last = (int(tail["barcode"]), int(tail["umi"]), int(tail["index"]))
+                    if first is None:
+                        head = out[0]
+                        first = (int(head["barcode"]), int(head["umi"]), int(head["index"]))
+        except BaseException as e:
+            failed = e
+
+        # one gather: kept, stat sums, and (order-tracked) the local verdict
+        # and boundary triples, as uint64 lanes
+        lane = [kept] + [stats[k] for k in stat_keys]
+        if track_order:
+            lane += [int(local_sorted), int(first is not None)]
+            lane += list(first or (0, 0, 0)) + list(last or (0, 0, 0))
+        gathered = _cohort_checkpoint(
+            failed, "the count pass", np.asarray(lane, dtype=np.uint64)
+        ).view(np.uint64)
+        total_kept = int(gathered[:, 0].sum())
+        totals = {k: int(gathered[:, 1 + i].sum()) for i, k in enumerate(stat_keys)}
+        globally_sorted = None
+        if track_order:
+            base = 1 + len(stat_keys)
+            globally_sorted = bool(gathered[:, base].all())
+            prev_last = None
+            for row in gathered if globally_sorted else ():
+                if not row[base + 1]:
+                    continue  # the rank wrote nothing
+                r_first = tuple(int(v) for v in row[base + 2:base + 5])
+                if prev_last is not None and r_first < prev_last:
+                    globally_sorted = False
+                    break
+                prev_last = tuple(int(v) for v in row[base + 5:base + 8])
+
+        my_offset = int(gathered[: process_index(), 0].sum())
+        _create_output(out_path, out_header, total_kept)
+        pos_out = HEADER_SIZE + RECORD_SIZE * my_offset
+        try:
+            fd = os.open(out_path, os.O_WRONLY)
+            try:
+                if spool_file is not None:
+                    spool_file.seek(0)
+                    while chunk := spool_file.read(1 << 23):
+                        _pwrite_all(fd, chunk, pos_out)
+                        pos_out += len(chunk)
+                else:
+                    for out, _ in out_batches():
+                        data = np.ascontiguousarray(out).view(np.uint8)
+                        _pwrite_all(fd, data, pos_out)
+                        pos_out += data.nbytes
+            finally:
+                os.close(fd)
+        except BaseException as e:
+            failed = e
+        _finish_write(failed, "the write pass", out_path)
+    finally:
+        if spool_file is not None:
+            spool_file.close()
+    return total_kept, totals, globally_sorted
+
+
+def multihost_filter_file(
+    in_path: str,
+    out_path: str,
+    barcodes,
+    invert: bool = False,
+    batch_records: int = 4 * 1024 * 1024,
+) -> dict:
+    """Cohort-wide allowlist filtering: :func:`ibu_tpu_torch.pipelines.filter_file`
+    with every rank streaming only its record range (the shared-filesystem
+    contract of :func:`multihost_sort_file`). Host numpy: no card is used.
+    Record order, and so the input's sorted flag, survives because the
+    ranges are contiguous and in rank order. The output is byte-identical to
+    the single-process tool's.
+    """
+    from ibu_tpu_torch.pipelines import _require_plain, allowlist_mask, filter_file
+
+    if process_count() == 1:
+        return filter_file(
+            in_path, out_path, barcodes, invert=invert, batch_records=batch_records,
+        )
+
+    _require_plain(in_path, "filter_file")
+    allow = np.unique(np.asarray(list(barcodes), dtype=np.uint64))
+    reader = MmapReader(in_path)
+    header = reader.header()
+    out_header = Header.new(header.bc_len, header.umi_len)
+    out_header.flags = header.flags  # the sorted flag survives
+
+    def transform(batch):
+        return batch[allowlist_mask(batch["barcode"], allow, invert)], {}
+
+    kept, _, _ = _multihost_rewrite(reader, out_path, out_header, transform, batch_records)
+    return {"records": reader.len(), "kept": kept, "allowlist": int(len(allow))}
+
+
+def multihost_correct_file(
+    in_path: str,
+    out_path: str,
+    barcodes,
+    batch_records: int = 4 * 1024 * 1024,
+    keep_unmatched: bool = False,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Cohort-wide Hamming-1 barcode correction:
+    :func:`ibu_tpu_torch.pipelines.correct_file` with every rank streaming
+    only its record range and probing on its own card (``device``). The
+    output's sorted flag follows the single-process observed-order rule,
+    verified ACROSS ranks (local verification and the boundary pairs of the
+    count gather); rank 0 patches the flag after the write checkpoint, and a
+    last checkpoint makes every rank return after the patch. The output
+    bytes match the single-process tool's.
+    """
+    from ibu_tpu_torch.ops.correct import CORRECTED, DROP, EXACT, correct_batch
+    from ibu_tpu_torch.pipelines import _require_plain, correct_file
+
+    if process_count() == 1:
+        return correct_file(
+            in_path, out_path, barcodes, batch_records=batch_records,
+            keep_unmatched=keep_unmatched, device=device,
+        )
+
+    allow = np.unique(np.asarray(list(barcodes), dtype=np.uint64))
+    _require_plain(in_path, "correct_file")
+    failed: BaseException | None = None
+    try:
+        device = resolve_device(device)
+    except BaseException as e:
+        failed = e
+    _cohort_checkpoint(failed, "the device lookup")
+    reader = MmapReader(in_path)
+    header = reader.header()
+    out_header = Header.new(header.bc_len, header.umi_len)
+
+    def transform(batch):
+        batch = batch.copy()
+        fixed, status = correct_batch(batch["barcode"], allow, header.bc_len, device=device)
+        batch["barcode"] = fixed
+        keep = np.ones(len(batch), dtype=bool) if keep_unmatched else status != DROP
+        return batch[keep], {
+            "exact": int(np.count_nonzero(status == EXACT)),
+            "corrected": int(np.count_nonzero(status == CORRECTED)),
+            "dropped": int(np.count_nonzero(status == DROP)),
+        }
+
+    kept, totals, globally_sorted = _multihost_rewrite(
+        reader, out_path, out_header, transform, batch_records,
+        stat_keys=("exact", "corrected", "dropped"), track_order=True,
+        spool=True,  # the Hamming probe dominates: run it once
+    )
+    try:
+        if globally_sorted and kept > 0 and process_index() == 0:
+            out_header.set_sorted()
+            with open(out_path, "r+b") as f:
+                f.seek(16)
+                f.write(struct.pack("<Q", out_header.flags))
+    except BaseException as e:
+        failed = e
+    # every rank returns after the patch, or raises with the output gone
+    _finish_write(failed, "the sorted-flag patch", out_path)
+    return {
+        "records": reader.len(),
+        "exact": totals["exact"],
+        "corrected": totals["corrected"],
+        "dropped": totals["dropped"],
+        "allowlist": int(len(allow)),
+    }
+
+
+#: barcode samples contributed per rank to the splitter election
+_COUNT_SPLIT_SAMPLES = 512
+
+
+def multihost_count_matrix(
+    in_path: str,
+    out_prefix: str,
+    batch_records: int = 4 * 1024 * 1024,
+    dedup: bool = True,
+) -> dict:
+    """Cohort-wide barcode × index count matrix:
+    :func:`ibu_tpu_torch.pipelines.count_matrix` (host engine) with both heavy
+    stages, the per-batch uniquing and the global merge, format and write,
+    sharded across ranks; no stage is O(answer) on one rank. Host numpy: no
+    card is used.
+
+    1. **range partial**: every rank streams only its record range
+       (:func:`ibu_tpu_torch.pipelines._count_range_partial`; sorted inputs
+       keep the O(n) adjacent difference with a boundary carry).
+    2. **splitters**: each rank gathers evenly spaced samples of its
+       partial's nondecreasing barcode column (compared as unsigned words);
+       rank *d* owns barcodes ``[sp[d-1], sp[d])``, so a barcode belongs
+       wholly to one rank.
+    3. **exchange** through ``{out_prefix}.mh_count.part{rank}.npz`` on the
+       shared filesystem: each destination's rows are ONE contiguous slice
+       of the partial (``searchsorted``); the file also carries the rank's
+       sorted unique indices.
+    4. **range merge**: rank *d* merges only its barcode range
+       (:func:`ibu_tpu_torch.pipelines._count_pairs_from_partials`); the
+       global index array is the union of every rank's, the same on all.
+    5. **cooperative output**: the entries are globally row-major by
+       construction, so each rank formats its own ``.mtx`` entry block,
+       ``barcodes.txt`` block (``bc_len+1`` bytes a line) and
+       ``indices.txt`` slice, and ``pwrite``s them at offsets from one
+       gather of block sizes. The trio is byte-identical to the
+       single-process host engine's.
+
+    Every local failure travels through a checkpoint, so all ranks fail
+    together; a failed cooperative write unlinks all three outputs on every
+    rank, and the part file is unlinked on every way out.
+    """
+    from ibu_tpu_torch.ops import codec as C
+    from ibu_tpu_torch.pipelines import (
+        _count_pairs_from_partials,
+        _count_range_partial,
+        _format_mtx_entries,
+        _require_plain,
+        count_matrix,
+    )
+
+    if process_count() == 1:
+        return count_matrix(
+            in_path, out_prefix, batch_records=batch_records, dedup=dedup, engine="host",
+        )
+
+    _require_plain(in_path, "count_matrix")
+    reader = MmapReader(in_path)
+    header = reader.header()
+    n = reader.len()
+    start, end = local_record_range(n)
+    pid = process_index()
+    nprocs = process_count()
+
+    failed: BaseException | None = None
+    part_path = f"{out_prefix}.mh_count.part{pid}.npz"
+    out_paths = (f"{out_prefix}.mtx", f"{out_prefix}.barcodes.txt", f"{out_prefix}.indices.txt")
+    try:
+        # -- stage 1: range partial (kept in memory for the later slices) --
+        keys = weights = None
+        try:
+            keys, weights = _count_range_partial(
+                reader, start, end, dedup, batch_records, in_path, boundary_carry=True,
+            )
+        except BaseException as e:
+            failed = e
+        _cohort_checkpoint(failed, "the range-partial pass")
+
+        # -- stage 2: splitter election over the unsigned barcode samples;
+        # an empty partial contributes the all-ones word, which sorts last --
+        s_n = _COUNT_SPLIT_SAMPLES
+        bc_col = keys["barcode"]
+        if len(bc_col):
+            samples = bc_col[_even_sample_positions(len(bc_col), s_n)]
+        else:
+            samples = np.full(s_n, np.uint64(0xFFFFFFFFFFFFFFFF), dtype=np.uint64)
+        gathered = np.sort(
+            _allgather_host(samples.astype(np.uint64).view(np.int64)).view(np.uint64).reshape(-1)
+        )
+        splitters = gathered[_splitter_cut_indices(len(gathered), nprocs)]
+        # rank d owns the barcodes b with (number of splitters <= b) == d
+
+        # -- stage 3: exchange write (per-destination contiguous slices) --
+        try:
+            cuts = np.concatenate(
+                [[0], np.searchsorted(bc_col, splitters, side="right"), [len(keys)]]
+            )
+            payload = {"idx": np.unique(keys["index"])}
+            for d in range(nprocs):
+                payload[f"k{d}"] = keys[cuts[d]:cuts[d + 1]]
+                if weights is not None:
+                    payload[f"w{d}"] = weights[cuts[d]:cuts[d + 1]]
+            np.savez(part_path, **payload)
+        except BaseException as e:
+            failed = e
+        _cohort_checkpoint(failed, "the exchange write")
+
+        # -- stage 4: merge MY barcode range and the (identical) index union --
+        pairs = counts = indices = bc_u = None
+        try:
+            key_parts, weight_parts, idx_parts = [], [], []
+            for r in range(nprocs):
+                with np.load(f"{out_prefix}.mh_count.part{r}.npz") as z:
+                    key_parts.append(z[f"k{pid}"])
+                    if f"w{pid}" in z:
+                        weight_parts.append(z[f"w{pid}"])
+                    idx_parts.append(z["idx"])
+            indices = np.unique(np.concatenate(idx_parts))
+            pairs, counts = _count_pairs_from_partials(
+                key_parts, weight_parts, dedup=dedup,
+                presorted=dedup and header.sorted(),  # carried ranges
+            )
+            bc_u = np.unique(pairs["barcode"])
+        except BaseException as e:
+            failed = e
+        gathered = _cohort_checkpoint(
+            failed, "the range merge",
+            (0, 0, 0) if failed is not None else (len(bc_u), len(pairs), int(counts.sum())),
+        )
+        r_total = int(gathered[:, 0].sum())
+        nnz = int(gathered[:, 1].sum())
+        molecules = int(gathered[:, 2].sum())
+        prefix_bc = int(gathered[:pid, 0].sum())
+
+        # -- stage 5: format my blocks; offsets from one size gather --
+        mtx_block = bc_block = idx_block = b""
+        try:
+            if len(pairs):
+                row = prefix_bc + np.searchsorted(bc_u, pairs["barcode"])
+                col = np.searchsorted(indices, pairs["index"])
+                mtx_block = _format_mtx_entries(row + 1, col + 1, np.asarray(counts)).encode()
+            bc_block = "".join(s + "\n" for s in C.decode_seqs(bc_u, header.bc_len)).encode()
+            i_lo, i_hi = partition(len(indices), nprocs)[pid]
+            idx_block = "".join(f"{int(i)}\n" for i in indices[i_lo:i_hi]).encode()
+        except BaseException as e:
+            failed = e
+        gathered = _cohort_checkpoint(
+            failed, "the block formatting", (len(mtx_block), len(idx_block))
+        )
+        mtx_head = (
+            "%%MatrixMarket matrix coordinate integer general\n"
+            "%rows=barcodes cols=record-indices "
+            f"source={in_path} dedup={dedup}\n"
+            f"{r_total} {len(indices)} {nnz}\n"
+        ).encode()
+        mtx_off = len(mtx_head) + int(gathered[:pid, 0].sum())
+        mtx_size = len(mtx_head) + int(gathered[:, 0].sum())
+        bc_off = prefix_bc * (header.bc_len + 1)
+        bc_size = r_total * (header.bc_len + 1)
+        idx_off = int(gathered[:pid, 1].sum())
+        idx_size = int(gathered[:, 1].sum())
+
+        try:
+            if pid == 0:
+                with open(out_paths[0], "wb") as f:
+                    f.write(mtx_head)
+                    f.truncate(mtx_size)
+                with open(out_paths[1], "wb") as f:
+                    f.truncate(bc_size)
+                with open(out_paths[2], "wb") as f:
+                    f.truncate(idx_size)
+        except BaseException as e:
+            failed = e
+        try:
+            _cohort_checkpoint(failed, "output creation")
+            for path, block, off in (
+                (out_paths[0], mtx_block, mtx_off),
+                (out_paths[1], bc_block, bc_off),
+                (out_paths[2], idx_block, idx_off),
+            ):
+                if not block:
+                    continue
+                fd = os.open(path, os.O_WRONLY)
+                try:
+                    _pwrite_all(fd, block, off)
+                finally:
+                    os.close(fd)
+        except BaseException as e:
+            failed = e
+        # a partial cooperative write must not survive as a valid-looking trio
+        _finish_write(failed, "the write pass", *out_paths)
+
+        return {
+            "barcodes": r_total,
+            "indices": int(len(indices)),
+            "entries": nnz,
+            "molecules": molecules,
+            "records": n,
+        }
+    finally:
+        try:
+            os.unlink(part_path)
+        except OSError:
+            pass
+
+
+def multihost_ingest_fastq(
+    fastq_path: str,
+    ibu_path: str,
+    bc_len: int,
+    umi_len: int,
+    batch: int = 200_000,
+    validate: bool = True,
+    device: str | torch.device | None = None,
+) -> int:
+    """Cohort-wide FASTQ → sorted IBU: the whole ingest sharded over the
+    ranks.
+
+    A plain FASTQ splits EXACTLY across ranks without parsing it twice:
+
+    * raw byte ranges partition by the reference rule; each rank counts the
+      newlines in its range (one vectorized memmap scan) and one gather
+      gives every rank the global line index at its range start, so the
+      every-4th-line phase, the 1-based line numbers in errors and each
+      rank's global READ index base follow by arithmetic;
+    * range starts align forward to the next line start (a line whose first
+      byte lies in a range belongs to that rank and is consumed to its real
+      end, the byte-range contract of
+      :func:`ibu_tpu_torch.pipelines.fastq_prefix_batches`);
+    * each rank parses and encodes only its reads (the codec on ``device``
+      when the device engine is chosen, once per rank) and ``pwrite``s them
+      at its exact offset of ``ibu_path + ".mhingest.tmp"``, then
+      :func:`multihost_sort_file` writes the sorted output.
+
+    Failures are cohort-uniform (checkpoints). Gzip/zstd FASTQs have no
+    random access: ingest those in one process. Returns the cohort's read
+    count on every rank.
+    """
+    from ibu_tpu_torch.io.compression import infer_compression, sniff_compression
+    from ibu_tpu_torch.io.stream import thread_prefetched
+    from ibu_tpu_torch.ops import codec as C
+    from ibu_tpu_torch.pipelines import (
+        _codec_engine,
+        encode_batch,
+        fastq_prefix_batches,
+        ingest_fastq,
+    )
+
+    if process_count() == 1:
+        return ingest_fastq(
+            fastq_path, ibu_path, bc_len, umi_len, batch=batch, validate=validate,
+            device=device,
+        )
+
+    with open(fastq_path, "rb") as f:
+        kind = sniff_compression(f.read(4))
+    if kind is not None:
+        raise ValueError(
+            f"{fastq_path} is {kind}-compressed: no random access to "
+            "shard it across hosts — decompress first, or ingest "
+            "single-host (compressed ingest streams fine there)"
+        )
+    if infer_compression(ibu_path):
+        raise ValueError(
+            "compressed output cannot be pwritten cooperatively; use a "
+            "plain .ibu output (compress it afterwards if needed)"
+        )
+
+    nprocs = process_count()
+    pid = process_index()
+    prefix_len = bc_len + umi_len
+    size = os.path.getsize(fastq_path)
+    bounds = partition(size, nprocs)
+    lo, hi = bounds[pid]
+    step = 1 << 26
+
+    # the codec engine (and its card) once per rank; the newlines in my raw
+    # range and my aligned start (the first line start >= lo)
+    failed: BaseException | None = None
+    nl_mine, aligned = 0, lo
+    try:
+        engine = _codec_engine("auto", device)
+        if engine == "device":
+            device = resolve_device(device)
+        # mode="r": shared inputs often sit on read-only mounts
+        mm = np.memmap(fastq_path, np.uint8, mode="r") if size else None
+        for p in range(lo, hi, step):
+            nl_mine += int(np.count_nonzero(mm[p:min(p + step, hi)] == 10))
+        if lo > 0 and mm[lo - 1] != 10:
+            aligned = size  # no line starts at or after lo unless a \n is found
+            for p in range(lo, size, step):
+                hits = np.flatnonzero(mm[p:min(p + step, size)] == 10)
+                if len(hits):
+                    aligned = p + int(hits[0]) + 1
+                    break
+    except BaseException as e:
+        failed = e
+    gathered = _cohort_checkpoint(failed, "the newline count", (nl_mine, aligned))
+    total_lines = int(gathered[:, 0].sum()) + (1 if size and mm[size - 1] != 10 else 0)
+    # the global line index at every rank's aligned start, by the same rule
+    line_starts = [
+        int(gathered[:r, 0].sum()) + (1 if gathered[r, 1] > bounds[r][0] else 0)
+        for r in range(nprocs)
+    ] + [total_lines]
+
+    def seq_lines_below(x: int) -> int:  # lines with index % 4 == 1
+        return (x + 2) // 4
+
+    reads = [seq_lines_below(line_starts[r + 1]) - seq_lines_below(line_starts[r])
+             for r in range(nprocs)]
+    total = int(sum(reads))
+    base = int(sum(reads[:pid]))
+
+    tmp = ibu_path + ".mhingest.tmp"
+    try:
+        _create_output(tmp, Header.new(bc_len, umi_len), total)
+        written = 0
+        try:
+            fd = os.open(tmp, os.O_WRONLY)
+            try:
+                pos_out = HEADER_SIZE + RECORD_SIZE * base
+                # parse ahead on a thread, as the single-process ingest does
+                for prefixes in thread_prefetched(
+                    fastq_prefix_batches(
+                        fastq_path, prefix_len, batch,
+                        byte_range=(aligned, hi), line_base=line_starts[pid],
+                    ),
+                    depth=2,
+                ):
+                    if validate:
+                        C.np_validate_ascii(prefixes)
+                    idx = np.arange(base + written, base + written + len(prefixes),
+                                    dtype=np.uint64)
+                    records = encode_batch(
+                        prefixes[:, :bc_len], prefixes[:, bc_len:], idx,
+                        engine=engine, device=device,
+                    )
+                    data = np.ascontiguousarray(records).view(np.uint8)
+                    _pwrite_all(fd, data, pos_out)
+                    pos_out += data.nbytes
+                    written += len(prefixes)
+            finally:
+                os.close(fd)
+            if written != reads[pid]:  # the parse against the line arithmetic
+                raise AssertionError(
+                    f"rank {pid} parsed {written} reads, expected "
+                    f"{reads[pid]} from the line arithmetic"
+                )
+        except BaseException as e:
+            failed = e
+        _cohort_checkpoint(failed, "the parse/encode pass")
+
+        # an existing ibu_path is replaced only by the sort, which removes its
+        # own partial writes: a parse error leaves an older file alone
+        multihost_sort_file(tmp, ibu_path, device=device)
+        return total
+    finally:
+        if pid == 0:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+
+
+def multihost_export_fastq(
+    ibu_path: str,
+    fastq_path: str,
+    batch_records: int = 1 << 20,
+    qual: str = "I",
+    device: str | torch.device | None = None,
+) -> tuple[int, int, str]:
+    """Cohort-wide FASTQ export: every rank decodes only its record range
+    (on ``device`` when the device codec is chosen) into its own shard file
+    (``reads.fastq.gz`` → ``reads.part3.fastq.gz`` on rank 3: per-host
+    shards are the usual FASTQ convention, and compressed streams cannot be
+    pwritten cooperatively anyway).
+
+    Read names carry the record index, so the shards concatenated in rank
+    order are the single-process export exactly. Returns ``(total_reads,
+    local_reads, this_rank_shard_path)``; the total is gathered, so every
+    rank knows the cohort's count beside its own. A failure on any rank
+    raises on every rank, and each rank removes its shard.
+    """
+    from ibu_tpu_torch.pipelines import _require_plain, export_fastq
+
+    if process_count() == 1:
+        mine = export_fastq(
+            ibu_path, fastq_path, batch_records=batch_records, qual=qual, device=device
+        )
+        return mine, mine, fastq_path
+
+    _require_plain(ibu_path, "export-fastq --distributed")
+    reader = MmapReader(ibu_path)
+    start, end = local_record_range(reader.len())
+
+    d, base = os.path.split(fastq_path)
+    dot = base.find(".")
+    pid = process_index()
+    shard = f"{base}.part{pid}" if dot < 0 else f"{base[:dot]}.part{pid}{base[dot:]}"
+    shard_path = os.path.join(d, shard)
+
+    failed: BaseException | None = None
+    mine = 0
+    try:
+        mine = export_fastq(
+            ibu_path, shard_path, batch_records=batch_records, qual=qual,
+            record_range=(start, end), device=device,
+        )
+    except BaseException as e:
+        failed = e
+    total = int(_finish_write(failed, "the export", shard_path, extra=(mine,)).sum())
+    return total, mine, shard_path

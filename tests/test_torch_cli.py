@@ -219,6 +219,7 @@ CASES = [
     ("count device", ["count", "{CS}", "m", "--engine", "device"]),
     ("count lying flag", ["count", "{LIE}", "m"]),
     ("count gzip", ["count", "{GZ}", "m"]),
+    ("count distributed device", ["count", "{CS}", "m", "--distributed", "--engine", "device"]),
     ("correct", ["correct", "{C}", "o.ibu", "--barcodes", "{CELLS}"]),
     ("correct keep", ["correct", "{C}", "o.ibu", "--barcodes", "{CELLS}", "--keep-unmatched"]),
     ("correct gzip", ["correct", "{GZ}", "o.ibu", "--barcodes", "{CELLS}"]),
@@ -352,27 +353,6 @@ def test_help_lists_the_subcommands(capsys):
     assert set(listed.split(",")) == SUBCOMMANDS
 
 
-@pytest.mark.parametrize("argv", [
-    ["filter", "{P}", "o.ibu", "--barcodes", "{ALLOW}", "--distributed"],
-    ["count", "{CS}", "m", "--distributed"],
-    ["correct", "{C}", "o.ibu", "--barcodes", "{CELLS}", "--num-processes", "2"],
-    ["dedup", "{CS}", "o.ibu", "--process-id", "0"],
-    ["ingest-fastq", "{FQ}", "o.ibu", "--coordinator", "localhost:1"],
-    ["export-fastq", "{P}", "o.fastq", "--distributed"],
-], ids=["filter", "count", "correct", "dedup", "ingest-fastq", "export-fastq"])
-def test_multihost_options_are_refused(argv, files, tmp_path, monkeypatch, capsys):
-    """The six commands whose cohort engines are not ported yet refuse the
-    distributed options: argparse exits 2 and nothing is written."""
-    monkeypatch.chdir(tmp_path)
-    argv = fill(argv, files) + (["--device", "cpu"] if argv[0] in DEVICE_COMMANDS else [])
-    with pytest.raises(SystemExit) as done:
-        torch_main(argv)
-    assert done.value.code == 2
-    err = capsys.readouterr().err
-    assert "usage: ibu_tpu_torch" in err and "unrecognized arguments: --" in err
-    assert not list(tmp_path.iterdir())
-
-
 #: (case id, argv) run by a 2-rank cohort of the port with ``--distributed``
 #: and by the JAX package in one process without it
 COHORT_CASES = [
@@ -382,6 +362,15 @@ COHORT_CASES = [
     ("sort mesh", ["sort", "{C}", "mesh.ibu", "--engine", "mesh"], None),
     ("sort pod", ["sort", "{C}", "pod.ibu", "--engine", "pod"], None),
     ("sort pod host", ["sort", "{C}", "host.ibu", "--engine", "pod"], "host"),
+    ("filter", ["filter", "{P}", "filter.ibu", "--barcodes", "{ALLOW}"], None),
+    ("filter invert", ["filter", "{P}", "invert.ibu", "--barcodes", "{ALLOW}", "--invert"], None),
+    ("correct", ["correct", "{C}", "correct.ibu", "--barcodes", "{CELLS}"], None),
+    ("dedup", ["dedup", "{CS}", "dedup.ibu"], None),
+    ("dedup presort", ["dedup", "{C}", "presort.ibu", "--assume-sorted", "no"], None),
+    ("count", ["count", "{CS}", "m"], None),
+    ("count raw reads", ["count", "{C}", "raw", "--raw-reads"], None),
+    ("export-fastq", ["export-fastq", "{P}", "reads.fastq"], None),
+    ("ingest-fastq", ["ingest-fastq", "{FQ}", "ingest.ibu"], None),
 ]
 
 
@@ -393,12 +382,26 @@ def cohort(files, tmp_path_factory):
     from tests.torch_cohort import launch
 
     d = tmp_path_factory.mktemp("cli_cohort")
-    tasks = [(cid, "cli", {"argv": fill(argv, files) + ["--device", "cpu"], "env": env})
-             for cid, argv, env in COHORT_CASES]
-    tasks.append(("fail", "cli_failing_on_rank1",
-                  {"argv": fill(["sort", "{C}", "fail.ibu", "--engine", "pod"], files)
-                   + ["--device", "cpu"]}))
+    def argv_of(argv):
+        return fill(argv, files) + (["--device", "cpu"] if argv[0] in DEVICE_COMMANDS else [])
+
+    tasks = [(cid, "cli", {"argv": argv_of(argv), "env": env}) for cid, argv, env in COHORT_CASES]
+    tasks += [
+        ("fail", "cli_failing_on_rank1",
+         {"argv": argv_of(["sort", "{C}", "fail.ibu", "--engine", "pod"])}),
+        ("fail count", "cli_failing_write_on_rank1", {"argv": argv_of(["count", "{CS}", "fail"])}),
+        ("lying flag", "cli", {"argv": argv_of(["dedup", "{LIE}", "lie.ibu"])}),
+    ]
     return d, launch(2, tasks, d, init=False)
+
+
+#: the files each cohort case writes, by the names its argv gives them
+def _outputs(argv) -> list[str]:
+    if argv[0] == "count":
+        return [argv[2] + ext for ext in (".mtx", ".barcodes.txt", ".indices.txt")]
+    if argv[0] in ("sort", "filter", "correct", "dedup", "ingest-fastq"):
+        return [argv[2]]
+    return []
 
 
 def _program_lines(err: str, prefixes=("# ", "pod sort engine auto:")) -> list[str]:
@@ -417,10 +420,24 @@ def test_distributed_rank0_matches_jax(case, cohort, files, tmp_path, monkeypatc
     jrc, jout, jerr = run(jax_main, fill(argv, files), tmp_path, monkeypatch, capsys)
     (rc0, out0, err0), (rc1, out1, err1) = (r[cid][1] for r in ranks)
     assert (rc0, out0) == (jrc, jout) and jrc == 0
-    assert _program_lines(err0) == _program_lines(port_text(jerr))
+    # a cohort's dedup sorts with the cohort sort, which names its engine
+    prefixes = ("# ", "pod sort engine auto:") if argv[0] == "sort" else ("# ",)
+    if argv[0] == "export-fastq":  # one shard per rank, each rank names its own
+        n = (len(Path(files["P"]).read_bytes()) - 32) // 24
+        assert _program_lines(err0) == [
+            f"# exported {n // 2} reads -> reads.part0.fastq (this host's shard)",
+            f"# pod total: {n} reads across rank-ordered part* shards"]
+        assert _program_lines(err1) == [
+            f"# exported {n - n // 2} reads -> reads.part1.fastq (this host's shard)"]
+        assert _program_lines(jerr) == [f"# exported {n} reads -> reads.fastq"]
+        shards = b"".join((d / f"reads.part{r}.fastq").read_bytes() for r in range(2))
+        assert shards == (tmp_path / "reads.fastq").read_bytes()
+    else:
+        assert _program_lines(err0, prefixes) == _program_lines(port_text(jerr), prefixes)
+        assert _program_lines(err1, ("# ",)) == []
     assert (rc1, out1) == (0, "")
-    if argv[0] == "sort":
-        assert (d / argv[2]).read_bytes() == (tmp_path / argv[2]).read_bytes()
+    for name in _outputs(argv):
+        assert (d / name).read_bytes() == (tmp_path / name).read_bytes(), name
 
 
 def test_a_failure_on_rank1_ends_both_ranks(cohort):
@@ -433,6 +450,31 @@ def test_a_failure_on_rank1_ends_both_ranks(cohort):
                                      "during the run sort (see that rank's error)")
     assert err1.splitlines()[-1] == "error: injected failure on rank 1"
     assert not any(p.name.startswith("fail.ibu") for p in d.iterdir())
+
+
+def test_a_write_failure_on_rank1_ends_both_ranks(cohort):
+    """Rank 1's first write of the count trio raises: both ranks exit 1, and
+    none of the three outputs is left."""
+    d, ranks = cohort
+    (rc0, out0, err0), (rc1, out1, err1) = (r["fail count"][1] for r in ranks)
+    assert (rc0, rc1, out0, out1) == (1, 1, "", "")
+    assert err0.splitlines()[-1] == ("error: multihost operation failed on another process "
+                                     "during the write pass (see that rank's error)")
+    assert err1.splitlines()[-1] == "error: injected failure on rank 1"
+    assert not any(p.name.startswith("fail.") for p in d.iterdir())
+
+
+def test_a_lying_sorted_flag_ends_both_ranks(cohort, files, tmp_path, monkeypatch, capsys):
+    """``dedup`` of a file whose sorted flag lies: both ranks exit 1 saying
+    so, rank 0 with the JAX CLI's line, and no output is left."""
+    d, ranks = cohort
+    jrc, jout, jerr = run(jax_main, fill(["dedup", "{LIE}", "lie.ibu"], files), tmp_path,
+                          monkeypatch, capsys)
+    (rc0, out0, err0), (rc1, out1, err1) = (r["lying flag"][1] for r in ranks)
+    assert (rc0, rc1, out0, out1) == (1, 1, "", "") and jrc == 1
+    assert err0.splitlines()[-1] == jerr.splitlines()[-1]
+    assert "not in sorted order" in err1.splitlines()[-1]
+    assert not (d / "lie.ibu").exists()
 
 
 def test_python_m_runs_the_cli(files, tmp_path):

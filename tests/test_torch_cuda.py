@@ -775,3 +775,60 @@ def test_record_loader_on_card(card, tmp_path, shuffle):
     assert [t.device.type for t in dev] == ["cuda"] * len(host)
     for t, want in zip(dev, host):
         assert t.cpu().numpy().tobytes() == np.ascontiguousarray(want).tobytes()
+
+
+def test_cohort_commands_on_two_ranks_of_one_card(card, tmp_path):
+    """``filter``, ``correct``, ``dedup`` (sorted, and unsorted through the
+    mesh sort), ``count``, ``export-fastq`` and ``ingest-fastq`` with
+    ``--distributed`` on two ranks sharing the card, no ``--device``: each
+    output equals the single-process function's on the card."""
+    from pathlib import Path
+
+    from ibu_tpu_torch import native
+    from tests.torch_cohort import launch
+
+    rng = np.random.default_rng(63)
+    n = 60_001
+    pool = rng.integers(0, 1 << 32, 400, dtype=np.uint64)
+    bc = pool[rng.integers(0, 400, n)]
+    bc[: n // 5] ^= np.uint64(1) << np.uint64(6)  # a substituted base in a fifth
+    recs = make_records(bc, rng.integers(0, 64, n, dtype=np.uint64),
+                        rng.integers(0, 500, n, dtype=np.uint64))
+    src = write_records(tmp_path / "u.ibu", recs, 16, 12)
+    srt = str(tmp_path / "s.ibu")
+    native.sort_file(src, srt)
+    allow = tmp_path / "allow.txt"
+    allow.write_text("".join(f"{int(b)}\n" for b in pool[:300]))
+    d = tmp_path / "c"
+    commands = {
+        "filter": ["filter", srt, "filter.ibu", "--barcodes", str(allow)],
+        "correct": ["correct", src, "correct.ibu", "--barcodes", str(allow)],
+        "dedup": ["dedup", srt, "dedup.ibu"],
+        "dedup presort": ["dedup", src, "presort.ibu", "--assume-sorted", "no"],
+        "count": ["count", srt, "m"],
+        "export-fastq": ["export-fastq", srt, "reads.fastq"],
+    }
+    tasks = [(k, "cli", {"argv": v}) for k, v in commands.items()]
+    tasks.append(("ingest-fastq", "cli", {"argv": ["ingest-fastq", str(tmp_path / "reads.fastq"),
+                                                   "ingest.ibu"]}))
+    TPL.export_fastq(srt, str(tmp_path / "reads.fastq"), device=card)  # ingest's input
+    ranks = launch(2, tasks, d, init=False)
+    for r, res in enumerate(ranks):
+        for key, (state, value) in res.items():
+            assert state == "ok" and value[0] == 0, (r, key, value)
+
+    def single(name):
+        return str(tmp_path / name)
+
+    keep = np.unique(pool[:300])
+    TPL.filter_file(srt, single("filter.ibu"), keep)
+    TPL.correct_file(src, single("correct.ibu"), keep, device=card)
+    TPL.dedup_file(srt, single("dedup.ibu"), device=card)
+    TPL.dedup_file(src, single("presort.ibu"), assume_sorted=False, device=card)
+    TPL.count_matrix(srt, single("m"))
+    TPL.ingest_fastq(str(tmp_path / "reads.fastq"), single("ingest.ibu"), 16, 12, device=card)
+    for name in ("filter.ibu", "correct.ibu", "dedup.ibu", "presort.ibu", "m.mtx",
+                 "m.barcodes.txt", "m.indices.txt", "ingest.ibu"):
+        assert (d / name).read_bytes() == Path(single(name)).read_bytes(), name
+    shards = b"".join((d / f"reads.part{r}.fastq").read_bytes() for r in range(2))
+    assert shards == (tmp_path / "reads.fastq").read_bytes()

@@ -141,6 +141,12 @@ ENTRY_POINTS = {
     "multihost_map_reduce": lambda p: MH.multihost_map_reduce(p, D.STATS_MAP_REDUCE),
     "multihost_placed_batches": lambda p: MH.multihost_placed_batches(MmapReader(p)),
     "exchange_backend": lambda p: MH.exchange_backend(),
+    "multihost_correct_file": lambda p: MH.multihost_correct_file(p, p + ".mhfixed", [7, 14]),
+    "multihost_export_fastq": lambda p: MH.multihost_export_fastq(p, p + ".mh.fastq"),
+    "multihost_ingest_fastq": lambda p: MH.multihost_ingest_fastq(fastq_of(p), p + ".mhback", 16,
+                                                                  12),
+    "multihost_dedup_file unsorted": lambda p: without_native(MH.multihost_dedup_file, p,
+                                                              p + ".mhdedup"),
     "RecordLoader.epoch": lambda p: RecordLoader(p, 8).epoch(0),
 }
 
@@ -170,14 +176,15 @@ def test_entry_points_without_device_raise(ibu_file, name):
 #: the entry points above that write a file
 WRITERS = ("encode_sorted_file", "sort_file_device", "dedup_file unsorted", "count_matrix device",
            "call_cells device", "correct_file", "export_fastq", "ingest_fastq", "sort_file_mesh",
-           "multihost_sort_file mesh", "multihost_sort_file auto")
+           "multihost_sort_file mesh", "multihost_sort_file auto", "multihost_correct_file",
+           "multihost_export_fastq", "multihost_ingest_fastq", "multihost_dedup_file unsorted")
 
 
 @pytest.mark.parametrize("name", WRITERS)
 def test_entry_points_without_a_card_write_nothing(ibu_file, name):
     """Without a card a call that writes a file raises before it creates its
     output, and leaves no temporary file beside it."""
-    if name == "ingest_fastq":
+    if name in ("ingest_fastq", "multihost_ingest_fastq"):
         fastq_of(ibu_file)  # its input
     before = sorted(os.listdir(os.path.dirname(ibu_file)))
     with pytest.raises(NoCardError):
@@ -246,6 +253,17 @@ def test_the_cohort_calls_run_on_the_cpu_by_name(ibu_file):
     assert MH.multihost_barcode_histogram(p, device="cpu") == {int(b): 1 for b in records["barcode"]}
     assert MH.exchange_backend("cpu") is None
     assert sum(len(b) for b in RecordLoader(p, 8, device="cpu").epoch(0)) == 64
+    assert MH.multihost_correct_file(p, p + ".fixed", [7, 14], device="cpu")["exact"] == 2
+    assert MH.multihost_export_fastq(p + ".mesh", p + ".fastq", device="cpu") == (
+        64, 64, p + ".fastq")
+    assert MH.multihost_ingest_fastq(p + ".fastq", p + ".back", 16, 12, device="cpu") == 64
+    assert np.array_equal(records_of(p + ".back")["barcode"], want["barcode"])
+    # the host engines need no device: filter, count, a sorted dedup, and an
+    # unsorted one where the native sort runs
+    assert MH.multihost_filter_file(p, p + ".kept", [7, 14])["kept"] == 2
+    assert MH.multihost_count_matrix(p + ".mesh", p + ".m")["entries"] == 64
+    assert MH.multihost_dedup_file(p + ".mesh", p + ".dd")["molecules"] == 64
+    assert MH.multihost_dedup_file(p, p + ".du")["molecules"] == 64
 
 
 @pytest.mark.parametrize("argv", [
@@ -253,6 +271,9 @@ def test_the_cohort_calls_run_on_the_cpu_by_name(ibu_file):
     ["sort", "{p}", "out", "--engine", "pod"],
     ["stats", "{p}", "--distributed"],
     ["histogram", "{p}", "--distributed"],
+    ["correct", "{p}", "out", "--barcodes", "{allow}", "--distributed"],
+    ["export-fastq", "{sorted}", "out", "--distributed"],
+    ["ingest-fastq", "{fastq}", "out", "--distributed"],
 ], ids=lambda v: " ".join(v[2:]).replace("{p} ", ""))
 def test_cli_cohort_commands_without_a_card_exit_2(cli_inputs, monkeypatch, capsys, argv):
     """The cohort forms of the commands (in a world of one here) need a card
@@ -389,6 +410,10 @@ def test_cli_device_commands_without_a_card_exit_2(cli_inputs, monkeypatch, caps
     (["export-fastq", "{sorted}", "out"], "host"),
     (["ingest-fastq", "{fastq}", "out"], "host"),
     (["sort", "{p}", "out", "--engine", "pod"], "pod host"),
+    (["filter", "{p}", "out", "--barcodes", "{allow}", "--distributed"], None),
+    (["count", "{sorted}", "out", "--distributed"], None),
+    (["dedup", "{sorted}", "out", "--distributed"], None),
+    (["dedup", "{p}", "out", "--distributed", "--assume-sorted", "no"], None),
 ], ids=lambda v: v if isinstance(v, str) else " ".join(v) if v else "")
 def test_cli_host_engines_need_no_card(cli_inputs, monkeypatch, capsys, argv, env):
     """A command whose engine does not use a device looks none up: it runs

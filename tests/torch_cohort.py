@@ -241,6 +241,54 @@ def backend(rank, world, device="cpu"):
             "world": MH.process_count()}
 
 
+def call(rank, world, fn, env=None, codec=None, **kwargs):
+    """``multihost.<fn>(**kwargs)`` under ``IBU_POD_SORT_ENGINE=env`` and
+    ``IBU_AUTO_ENGINE=codec`` (each unset when None); returns its result."""
+    from ibu_tpu_torch.parallel import multihost as MH
+
+    with env_var("IBU_POD_SORT_ENGINE", env), env_var("IBU_AUTO_ENGINE", codec):
+        return getattr(MH, fn)(**kwargs)
+
+
+def _writes_failing_on_rank1(rank):
+    """``multihost._pwrite_all`` raising on rank 1, as it is elsewhere."""
+    from ibu_tpu_torch.parallel import multihost as MH
+
+    def boom(fd, data, offset):
+        raise OSError(f"injected failure on rank {rank}")
+
+    return patched(MH, "_pwrite_all", boom if rank == 1 else MH._pwrite_all)
+
+
+def call_failing_write_on_rank1(rank, world, fn, **kwargs):
+    """:func:`call` with rank 1's first ``_pwrite_all`` raising."""
+    with _writes_failing_on_rank1(rank):
+        return call(rank, world, fn, **kwargs)
+
+
+def call_failing_export_on_rank1(rank, world, **kwargs):
+    """``multihost_export_fastq`` with rank 1's ``export_fastq`` raising
+    after it has created its shard."""
+    from ibu_tpu_torch import pipelines as PL
+
+    inner = PL.export_fastq
+
+    def boom(ibu_path, fastq_path, **kw):
+        open(fastq_path, "wb").close()
+        raise OSError(f"injected failure on rank {rank}")
+
+    with patched(PL, "export_fastq", boom if rank == 1 else inner):
+        return call(rank, world, "multihost_export_fastq", **kwargs)
+
+
+def call_without_card(rank, world, fn, **kwargs):
+    """:func:`call` with ``torch.cuda.is_available`` answering False."""
+    import torch
+
+    with patched(torch.cuda, "is_available", lambda: False):
+        return call(rank, world, fn, **kwargs)
+
+
 def cli(rank, world, argv, env=None):
     """``python -m ibu_tpu_torch`` in process as this rank, ``--distributed``
     and the cohort's three flags appended: ``(exit code, stdout, stderr)``,
@@ -255,6 +303,12 @@ def cli(rank, world, argv, env=None):
             contextlib.redirect_stderr(err):
         rc = main(argv)
     return rc, out.getvalue(), err.getvalue()
+
+
+def cli_failing_write_on_rank1(rank, world, argv):
+    """:func:`cli` with rank 1's first ``_pwrite_all`` raising."""
+    with _writes_failing_on_rank1(rank):
+        return cli(rank, world, argv)
 
 
 def cli_failing_on_rank1(rank, world, argv):
