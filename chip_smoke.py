@@ -109,8 +109,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     with the codec kernels' launch counters zeroed before each: one
     ``decode_records`` launch per ``Reader`` batch, and one per export and
     ingest batch; and, beside the rest, ``stats --engine device`` with ``CUDA_VISIBLE_DEVICES=""``,
-    which must exit 2 with one line on stderr and nothing on stdout. Each
-    command's wall is printed;
+    which must exit 2 with one line on stderr and nothing on stdout. The
+    commands run in three lanes side by side (the workflow's read-only
+    commands and the file tools; the workflow's writing commands; the FASTQ
+    commands and ``decode``), each lane in order, so each command's printed
+    wall is taken with up to three others running;
 13. drive the cohort layer (:mod:`ibu_tpu_torch.parallel.multihost`,
     :mod:`ibu_tpu_torch.parallel.sort`, :mod:`ibu_tpu_torch.data`) on an
     unsorted file of 10M bc16/umi12 records drawn from phase 10's called
@@ -150,7 +153,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     epochs): every batch's checksum on the card equal to ``host_batches``',
     each epoch an exact permutation, the two epochs different, two shards an
     exact union, and the card's busy share of one profiled epoch (this leg
-    runs first). Each leg's wall is printed.
+    runs first). Each leg's wall is printed;
+14. run the device-capacity and feed labs (:mod:`ibu_tpu_torch.labs`), each
+    through its ``main(argv)`` in this process, at sizes that keep the phase
+    near a minute: ``engine_capacity_lab`` (8 resident 2^20-record batches,
+    chains of 16 and 64; again at 2^22, the stream's batch),
+    ``histogram_capacity_lab`` unsorted and ``--sorted --bc16`` (spill on;
+    the chains under CUDA's sync debug mode at ``"error"``),
+    ``molcount_capacity_lab`` at 2^22 records with the hints off and on,
+    ``sort_keys_lab`` at 2^20 and 2^24 records (two input sets),
+    ``stream_lab`` over two 10M-record files (all four phases, in
+    ``/dev/shm``; the engine and breakdown again with the files under
+    ``build/``), ``put_sweep`` at its defaults and ``put_source_lab`` at 2^20
+    records and 4 puts a leg. Every lab's exact oracle checks must hold (a
+    failed one raises inside the lab), each must exit 0, and each JSON line
+    it prints must name this card and its timer; the lines are printed as
+    they come.
 
 Phases 1-10 name ``engine="device"`` where they assert launches; only
 ``decode_file``, which takes no engine, runs under a scoped
@@ -178,6 +196,7 @@ from __future__ import annotations
 import contextlib
 import filecmp
 import functools
+import io
 import json
 import os
 import resource
@@ -198,7 +217,18 @@ from ibu_tpu_torch.io.reader import DEFAULT_BUFFER_RECORDS
 from ibu_tpu_torch.labs import _harness as LH
 from ibu_tpu_torch.labs import _kernels as LK
 from ibu_tpu_torch.labs import _sort_kernels as SK
-from ibu_tpu_torch.labs import kernel_lab, sol_lab, sort_lab
+from ibu_tpu_torch.labs import (
+    engine_capacity_lab,
+    histogram_capacity_lab,
+    kernel_lab,
+    molcount_capacity_lab,
+    put_source_lab,
+    put_sweep,
+    sol_lab,
+    sort_keys_lab,
+    sort_lab,
+    stream_lab,
+)
 from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops import codec_cuda as K
@@ -1343,7 +1373,7 @@ def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
 
     # no card: a device command refuses before it writes anything. It runs
     # on a thread beside the rest of the phase (it only sniffs the file)
-    pool = ThreadPoolExecutor(1)
+    pool = ThreadPoolExecutor(4)  # this command and the three lanes below
     no_card = pool.submit(run_cli, ["stats", src, "--engine", "device"], walls,
                           "stats without a card", env=cli_env(CUDA_VISIBLE_DEVICES=""))
 
@@ -1352,100 +1382,123 @@ def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
     proc = run_cli(["info", tiny], walls, "info 1 record")
     cli_ok(proc, "info 1 record")
 
-    # the workflow commands on phase 10's raw file
-    path = out("sorted.ibu")
-    cli_ok(run_cli(["sort", raw, path], walls, "sort native"), "sort", f"sorted {raw} -> {path}\n")
-    same_file(path, raw, "sort of the sorted raw file")  # native.sort_file gives it back
-    reader = MmapReader(raw)
-    h = reader.header()
-    info = {"path": raw, "magic": "IBU!", "version": h.version, "bc_len": h.bc_len,
-            "umi_len": h.umi_len, "sorted": h.sorted(), "flags": h.flags,
-            "records": reader.len(), "bytes": 32 + 24 * reader.len()}
-    cli_ok(run_cli(["info", raw], walls, "info"), "info", json.dumps(info) + "\n")
-    stats = PL.file_stats(raw, engine="native")
-    stats.pop("engine")
-    cli_ok(run_cli(["stats", raw], walls, "stats"), "stats", json.dumps(stats) + "\n")
-    keys, counts = PL.barcode_counts(raw, engine="host", batch_records=WF_BATCH)
-    order = np.lexsort((keys, -counts))[:20]
-    top = "".join(f"{seq}\t{int(c)}\n"
-                  for seq, c in zip(C.decode_seqs(keys[order], BC_LEN), counts[order]))
-    proc = run_cli(["histogram", raw, "--top", "20"], walls, "histogram")
-    cli_ok(proc, "histogram", top)
-    require(proc.stderr.decode().endswith(
-        f"# {len(keys)} unique barcodes, {int(counts.sum())} records\n"), "histogram's totals")
-    path = out("cells.txt")
-    cli_ok(run_cli(["cells", raw, "-o", path, "--engine", "device", "--method", "ordmag",
-                    "--expect", str(CELLS)], walls, "cells device"), "cells")
-    same_file(path, wf["cells"], "cells --engine device")
-    path = out("corrected.ibu")
-    cli_ok(run_cli(["correct", raw, path, "--barcodes", wf["cells"]], walls, "correct"), "correct")
-    same_file(path, wf["corrected"], "correct")
-    path = out("molecules.ibu")
-    cli_ok(run_cli(["dedup", wf["corrected"], path, "--assume-sorted", "no"], walls,
-                   "dedup native sort"), "dedup")
-    same_file(path, wf["molecules"], "dedup --assume-sorted no")
-    proc = run_cli(["count", wf["molecules"], out("counts")], walls, "count host")
-    cli_ok(proc, "count")
-    require(count_trio(out("counts")) == count_trio(wf["counts"]), "count equals count_matrix")
-    count_line = (proc.stdout.decode(), out("counts"))
-    proc = run_cli(["count", wf["molecules"], out("counts_dev"), "--engine", "device"], walls,
-                   "count device")
-    err = proc.stderr.decode()
-    if proc.returncode == 0:
-        require(count_trio(out("counts_dev")) == count_trio(wf["counts"]),
-                "count --engine device equals the host engine")
-        log("cli: count --engine device ran within max_pairs=1048576")
-    else:
-        require(proc.returncode == 1 and err.startswith("error: a batch produced ") and err.endswith(
-            " distinct (barcode, index) pairs, over the max_pairs=1048576 device capacity; raise "
-            "it or shrink batch_records\n") and not proc.stdout,
-            f"count --engine device refuses with the reference's text: {err!r}")
-        log("cli: count --engine device refused past max_pairs=1048576, exit 1, as the reference")
+    def workflow_reads() -> None:
+        """The read-only workflow commands on phase 10's raw file."""
+        path = out("sorted.ibu")
+        cli_ok(run_cli(["sort", raw, path], walls, "sort native"), "sort",
+               f"sorted {raw} -> {path}\n")
+        same_file(path, raw, "sort of the sorted raw file")  # native.sort_file gives it back
+        reader = MmapReader(raw)
+        h = reader.header()
+        info = {"path": raw, "magic": "IBU!", "version": h.version, "bc_len": h.bc_len,
+                "umi_len": h.umi_len, "sorted": h.sorted(), "flags": h.flags,
+                "records": reader.len(), "bytes": 32 + 24 * reader.len()}
+        cli_ok(run_cli(["info", raw], walls, "info"), "info", json.dumps(info) + "\n")
+        stats = PL.file_stats(raw, engine="native")
+        stats.pop("engine")
+        cli_ok(run_cli(["stats", raw], walls, "stats"), "stats", json.dumps(stats) + "\n")
+        keys, counts = PL.barcode_counts(raw, engine="host", batch_records=WF_BATCH)
+        order = np.lexsort((keys, -counts))[:20]
+        top = "".join(f"{seq}\t{int(c)}\n"
+                      for seq, c in zip(C.decode_seqs(keys[order], BC_LEN), counts[order]))
+        proc = run_cli(["histogram", raw, "--top", "20"], walls, "histogram")
+        cli_ok(proc, "histogram", top)
+        require(proc.stderr.decode().endswith(
+            f"# {len(keys)} unique barcodes, {int(counts.sum())} records\n"), "histogram's totals")
+        path = out("cells.txt")
+        cli_ok(run_cli(["cells", raw, "-o", path, "--engine", "device", "--method", "ordmag",
+                        "--expect", str(CELLS)], walls, "cells device"), "cells")
+        same_file(path, wf["cells"], "cells --engine device")
 
-    # the FASTQ commands and the file tools on phase 11's sorted file
-    fastq, back = out("a.fastq"), out("back.ibu")
-    cli_ok(run_cli(["export-fastq", src, fastq], walls, "export-fastq"), "export-fastq")
-    require(filecmp.cmp(fastq, fq["fastq"], shallow=False), "export-fastq equals export_fastq")
-    cli_ok(run_cli(["ingest-fastq", fastq, back], walls, "ingest-fastq"), "ingest-fastq")
-    os.unlink(fastq)
-    same_file(back, fq["back"], "ingest-fastq")
-    tsv = out("decode.tsv")
-    with open(tsv, "wb") as f:
-        cli_ok(run_cli(["decode", src], walls, "decode", stdout=f), "decode")
-    m = N_FASTQ_GZIP
-    head, tail = tsv_lines(records[:m]), tsv_lines(records[n - m:])
-    with open(tsv, "rb") as f:
-        require(f.read(len(head)) == head, f"decode's first {m} lines are decode_tsv_block's")
-        f.seek(-len(tail), os.SEEK_END)
-        require(f.read() == tail, f"decode's last {m} lines are decode_tsv_block's")
-    cli_ok(run_cli(["check", src, "--json"], walls, "check"), "check",
-           json.dumps(fq["check"]) + "\n")
-    allow = out("allow.txt")
-    Path(allow).write_text("".join(f"{int(b)}\n" for b in fq["allow"]))
-    path = out("kept.ibu")
-    cli_ok(run_cli(["filter", src, path, "--barcodes", allow], walls, "filter"), "filter")
-    same_file(path, fq["kept"], "filter")
-    few = fq["few"]
-    lines = "".join(f"{b}\t{u}\t{int(i)}\n" for b, u, i in zip(
-        C.decode_seqs(few["barcode"], BC_LEN), C.decode_seqs(few["umi"], UMI_LEN), few["index"]))
-    cli_ok(run_cli(["lookup", src, *(str(int(b)) for b in fq["allow"][:8])], walls, "lookup"),
-           "lookup", lines)
-    cli_ok(run_cli(["split", src, out("shard{}.ibu"), "4"], walls, "split"), "split")
-    for k, shard in enumerate(fq["shards"]):
-        same_file(out(f"shard{k}.ibu"), shard, f"split shard {k}")
-    path = out("merged.ibu")
-    cli_ok(run_cli(["merge", path, *fq["shards"]], walls, "merge"), "merge")
-    same_file(path, src, "merge of the sorted shards")
-    path = out("cat.ibu")
-    cli_ok(run_cli(["concat", path, *fq["shards"]], walls, "concat"), "concat")
-    same_file(path, fq["cat"], "concat")
-    path = out("sub.ibu")
-    cli_ok(run_cli(["subsample", src, path, "--n", str(N_FASTQ_GZIP), "--seed", "0"], walls,
-                   "subsample"), "subsample")
-    same_file(path, fq["sub"], "subsample")
-    path = out("fixed.ibu")
-    cli_ok(run_cli(["repair", fq["torn"], path], walls, "repair"), "repair")
-    same_file(path, fq["fixed"], "repair")
+    def workflow_writes() -> tuple[str, str]:
+        """The workflow commands that write files; returns ``count``'s line."""
+        path = out("corrected.ibu")
+        cli_ok(run_cli(["correct", raw, path, "--barcodes", wf["cells"]], walls, "correct"),
+               "correct")
+        same_file(path, wf["corrected"], "correct")
+        path = out("molecules.ibu")
+        cli_ok(run_cli(["dedup", wf["corrected"], path, "--assume-sorted", "no"], walls,
+                       "dedup native sort"), "dedup")
+        same_file(path, wf["molecules"], "dedup --assume-sorted no")
+        proc = run_cli(["count", wf["molecules"], out("counts")], walls, "count host")
+        cli_ok(proc, "count")
+        require(count_trio(out("counts")) == count_trio(wf["counts"]), "count equals count_matrix")
+        count_line = (proc.stdout.decode(), out("counts"))
+        proc = run_cli(["count", wf["molecules"], out("counts_dev"), "--engine", "device"], walls,
+                       "count device")
+        err = proc.stderr.decode()
+        if proc.returncode == 0:
+            require(count_trio(out("counts_dev")) == count_trio(wf["counts"]),
+                    "count --engine device equals the host engine")
+            log("cli: count --engine device ran within max_pairs=1048576")
+        else:
+            require(proc.returncode == 1 and err.startswith("error: a batch produced ")
+                    and err.endswith(
+                        " distinct (barcode, index) pairs, over the max_pairs=1048576 device "
+                        "capacity; raise it or shrink batch_records\n") and not proc.stdout,
+                    f"count --engine device refuses with the reference's text: {err!r}")
+            log("cli: count --engine device refused past max_pairs=1048576, exit 1, as the "
+                "reference")
+        return count_line
+
+    fastq, back, tsv = out("a.fastq"), out("back.ibu"), out("decode.tsv")
+
+    def fastq_commands() -> None:
+        """The FASTQ commands and ``decode`` on phase 11's sorted file."""
+        cli_ok(run_cli(["export-fastq", src, fastq], walls, "export-fastq"), "export-fastq")
+        require(filecmp.cmp(fastq, fq["fastq"], shallow=False), "export-fastq equals export_fastq")
+        cli_ok(run_cli(["ingest-fastq", fastq, back], walls, "ingest-fastq"), "ingest-fastq")
+        os.unlink(fastq)
+        same_file(back, fq["back"], "ingest-fastq")
+        with open(tsv, "wb") as f:
+            cli_ok(run_cli(["decode", src], walls, "decode", stdout=f), "decode")
+        m = N_FASTQ_GZIP
+        head, tail = tsv_lines(records[:m]), tsv_lines(records[n - m:])
+        with open(tsv, "rb") as f:
+            require(f.read(len(head)) == head, f"decode's first {m} lines are decode_tsv_block's")
+            f.seek(-len(tail), os.SEEK_END)
+            require(f.read() == tail, f"decode's last {m} lines are decode_tsv_block's")
+
+    def file_tools_commands() -> None:
+        """The file tools on phase 11's sorted file."""
+        cli_ok(run_cli(["check", src, "--json"], walls, "check"), "check",
+               json.dumps(fq["check"]) + "\n")
+        allow = out("allow.txt")
+        Path(allow).write_text("".join(f"{int(b)}\n" for b in fq["allow"]))
+        path = out("kept.ibu")
+        cli_ok(run_cli(["filter", src, path, "--barcodes", allow], walls, "filter"), "filter")
+        same_file(path, fq["kept"], "filter")
+        few = fq["few"]
+        lines = "".join(f"{b}\t{u}\t{int(i)}\n" for b, u, i in zip(
+            C.decode_seqs(few["barcode"], BC_LEN), C.decode_seqs(few["umi"], UMI_LEN),
+            few["index"]))
+        cli_ok(run_cli(["lookup", src, *(str(int(b)) for b in fq["allow"][:8])], walls,
+                       "lookup"), "lookup", lines)
+        cli_ok(run_cli(["split", src, out("shard{}.ibu"), "4"], walls, "split"), "split")
+        for k, shard in enumerate(fq["shards"]):
+            same_file(out(f"shard{k}.ibu"), shard, f"split shard {k}")
+        path = out("merged.ibu")
+        cli_ok(run_cli(["merge", path, *fq["shards"]], walls, "merge"), "merge")
+        same_file(path, src, "merge of the sorted shards")
+        path = out("cat.ibu")
+        cli_ok(run_cli(["concat", path, *fq["shards"]], walls, "concat"), "concat")
+        same_file(path, fq["cat"], "concat")
+        path = out("sub.ibu")
+        cli_ok(run_cli(["subsample", src, path, "--n", str(N_FASTQ_GZIP), "--seed", "0"], walls,
+                       "subsample"), "subsample")
+        same_file(path, fq["sub"], "subsample")
+        path = out("fixed.ibu")
+        cli_ok(run_cli(["repair", fq["torn"], path], walls, "repair"), "repair")
+        same_file(path, fq["fixed"], "repair")
+
+    def reads_and_tools() -> None:
+        workflow_reads()
+        file_tools_commands()
+
+    # three lanes side by side, each command after the one before it in its
+    # lane: the walls are taken with up to four commands running at once
+    lanes = [pool.submit(lane) for lane in (reads_and_tools, workflow_writes, fastq_commands)]
+    count_line = [lane.result() for lane in lanes][1]
 
     # the codec commands in this process, with the kernels' launches counted
     from ibu_tpu_torch.__main__ import main as cli_main
@@ -1490,7 +1543,7 @@ def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
     require(proc.returncode == 2 and not proc.stdout and err.count("\n") == 1
             and "--device cpu" in err, f"without a card stats --engine device exits 2: {err!r}")
 
-    log("cli: walls (one run each, a new process each): " + ", ".join(
+    log("cli: walls (one run each, a new process each, three lanes side by side): " + ", ".join(
         f"{k} {v:.3f} s" for k, v in walls.items()))
     log(f"cli: phase 12 took {time.perf_counter() - t_phase:.1f} s")
     return cli_launches, count_line
@@ -1965,6 +2018,46 @@ def cohort_phase(card, wf: dict, workdir: Path) -> dict:
     return launches
 
 
+#: phase 14: each lab's module and its arguments
+LABS_DIR = ROOT / "build" / "chip_smoke_labs"  # the stream lab's files on the checkout's disk
+CAPACITY_LABS = [
+    (engine_capacity_lab, []),
+    (engine_capacity_lab, ["--batch-records", str(1 << 22)]),  # the stream's batch
+    (histogram_capacity_lab, []),
+    (histogram_capacity_lab, ["--sorted", "--bc16"]),
+    (molcount_capacity_lab, ["--hints", "both"]),
+    (sort_keys_lab, ["--records", str(1 << 20), str(1 << 24), "--sets", "2"]),
+    (stream_lab, ["--records", "10", "--reps", "2"]),
+    (stream_lab, ["--records", "10", "--reps", "2", "--phases", "e,b", "--workdir", str(LABS_DIR)]),
+    (put_sweep, []),
+    (put_source_lab, ["--batch-records", str(1 << 20), "--reps", "4"]),
+]
+
+
+def capacity_labs_phase(card) -> None:
+    """Phase 14: every device-capacity and feed lab through its ``main``."""
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(card)
+    try:
+        for module, argv in CAPACITY_LABS:
+            lab = module.__name__.rsplit(".", 1)[1]
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = module.main(argv)
+            log(f"wall: {lab} {' '.join(argv)}: {time.perf_counter() - t0:.3f} s")
+            require(rc == 0, f"{lab} exited 0")
+            printed = [json.loads(line) for line in out.getvalue().splitlines()]
+            require(bool(printed), f"{lab} printed its JSON lines")
+            for line in printed:
+                require(line["device"] == name and line["timer"],
+                        f"{lab}'s line names {name} and its timer")
+                print(json.dumps(line), flush=True)
+    finally:
+        shutil.rmtree(LABS_DIR, ignore_errors=True)
+    log(f"capacity labs: phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2029,6 +2122,8 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         os.environ.pop("IBU_AUTO_ENGINE", None)
+    log(f"elapsed before the capacity labs: {time.perf_counter() - t_start:.1f} s")
+    capacity_labs_phase(card)
     for entry in kernels:
         name = entry["name"]
         if name in ("encode_records", "decode_records"):

@@ -57,6 +57,8 @@ from ibu_tpu_torch.io import (
 )
 from ibu_tpu_torch.parallel import BatchProcessor, ParallelProcessor, process_parallel
 
+__version__ = "0.1.0"
+
 __all__ = [
     "BATCH_SIZE",
     "BatchProcessor",

@@ -24,22 +24,16 @@ import time
 
 import numpy as np
 
-from ibu_tpu_torch import BatchProcessor, Header, MmapReader, Writer, make_records, process_parallel
+from ibu_tpu_torch import BatchProcessor, MmapReader, process_parallel
+from ibu_tpu_torch.utils.datagen import parallel_fields, write_patterned_file
 from ibu_tpu_torch.utils.device import select_device
-
-CHUNK = 4 * 1024 * 1024
 U64_MASK = (1 << 64) - 1
 
 
 def write_file(filename: str, num_records: int) -> None:
-    """The patterned file, in 4M-record batches."""
+    """The patterned file, in 4M-record batches, sorted flag set."""
     start = time.perf_counter()
-    header = Header.new(16, 12)
-    header.set_sorted()
-    with Writer.from_path(filename, header) as w:
-        for s in range(0, num_records, CHUNK):
-            i = np.arange(s, min(s + CHUNK, num_records), dtype=np.uint64)
-            w.write_batch(make_records(i % np.uint64(1_000_000), i * np.uint64(2), i))
+    write_patterned_file(filename, num_records, parallel_fields, sorted_flag=True)
     dur = time.perf_counter() - start
     print(f"  Wrote {num_records} records in {dur:.2f}s "
           f"({num_records * 24 / dur / 1e9:.2f} GB/s)")

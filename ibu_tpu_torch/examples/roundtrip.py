@@ -24,19 +24,10 @@ import torch
 from ibu_tpu_torch import Header, Reader, Writer, make_records
 from ibu_tpu_torch.io import load_to_vec
 from ibu_tpu_torch.ops.u64 import U64_MASK, records_to_tensor
+from ibu_tpu_torch.utils.datagen import roundtrip_fields
 from ibu_tpu_torch.utils.device import select_device
 
 CHUNK = 4 * 1024 * 1024
-
-
-def roundtrip_fields(i: np.ndarray):
-    """barcode = i mod 1M, umi = 31i mod 1M, index = i (the reference
-    roundtrip pattern, ``examples/roundtrip.rs:33-39``)."""
-    return (
-        i % np.uint64(1_000_000),
-        (i * np.uint64(31)) % np.uint64(1_000_000),
-        i,
-    )
 
 
 def patterned_batch(start: int, n: int) -> np.ndarray:

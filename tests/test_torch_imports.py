@@ -83,6 +83,35 @@ def test_the_scans_cover_the_cohort_modules():
         assert f"ibu_tpu_torch/{name}" in scanned
 
 
+LAB_MODULES = ("engine_capacity_lab", "histogram_capacity_lab", "molcount_capacity_lab",
+               "sort_keys_lab", "stream_lab", "put_sweep", "put_source_lab")
+
+
+def test_the_scans_cover_the_capacity_and_feed_labs():
+    scanned = {str(p.relative_to(REPO)) for p in PORT_SOURCES}
+    for name in LAB_MODULES + ("_capacity",):
+        assert f"ibu_tpu_torch/labs/{name}.py" in scanned
+    assert "ibu_tpu_torch/utils/datagen.py" in scanned
+
+
+def test_capacity_and_feed_labs_load_neither_ibu_tpu_nor_jax():
+    """The seven labs and the generator in a fresh process; the generator
+    alone loads no torch either."""
+    code = (
+        "import importlib, sys\n"
+        "import ibu_tpu_torch.utils.datagen\n"
+        "assert 'torch' not in sys.modules, 'datagen loads torch'\n"
+        f"for name in {LAB_MODULES!r}:\n"
+        "    importlib.import_module('ibu_tpu_torch.labs.' + name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('ibu_tpu', 'jax', 'jaxlib'))\n"
+        "print('loaded', bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "loaded []"
+
+
 def test_host_commands_load_no_jax_torch_or_cuda(tmp_path):
     """``python -m ibu_tpu_torch info`` in a fresh process, then the other
     host commands and the host engines of ``count``, ``dedup`` and ``stats``
