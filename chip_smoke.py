@@ -125,7 +125,12 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     the group destroyed after; two ranks on the one card, one launch of this
     script as the rank workers under ``IBU_AUTO_ENGINE=device``, each running
     through ``ibu_tpu_torch.__main__.main`` with ``--distributed`` and no
-    ``--device``: ``sort --engine mesh``, ``sort --engine pod``
+    ``--device``, first the entry module's dry run
+    (:func:`ibu_tpu_torch.entry.dryrun_rank` at 2^22 records a rank: encode,
+    fold, ``all_reduce`` of the count, the merge, and ``sharded_sort_records``
+    of the reference's records, each against numpy, ``encode_records``
+    launched once a rank; it joins the cohort the commands then use), then
+    ``sort --engine mesh``, ``sort --engine pod``
     (``IBU_POD_SORT_ENGINE=host``), ``stats`` and ``histogram --top 20`` on
     the cohort file; ``correct`` of phase 10's raw file (equal to phase 10's
     corrected file), ``dedup --assume-sorted no`` of that (the mesh sort inside;
@@ -168,7 +173,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     records and 4 puts a leg. Every lab's exact oracle checks must hold (a
     failed one raises inside the lab), each must exit 0, and each JSON line
     it prints must name this card and its timer; the lines are printed as
-    they come.
+    they come;
+15. drive the entry point (:func:`ibu_tpu_torch.entry.entry`) on
+    the card: its step on the 8192-record example, then on the reference's
+    draws at 10M bc16/umi12 records (config 1's size), the records held
+    exactly against the plain version and the sums against numpy;
+    ``encode_records``' launch counter is zeroed just before the phase and
+    must count one launch per step. The walls are printed, and the script's
+    total time last.
 
 Phases 1-10 name ``engine="device"`` where they assert launches; only
 ``decode_file``, which takes no engine, runs under a scoped
@@ -188,7 +200,8 @@ call alone under ``bincount_ms``). The last line is
 ``fastq_launches``, their launches in phase 11's device legs,
 ``cli_launches``, their launches under phase 12's in-process commands, and
 ``cohort_launches``, their launches in each rank of phase 13's cohort
-commands.
+commands (the dry run's among them); ``encode_records`` also carries
+``entry_launches``, its launches in phase 15 and in each rank's dry run.
 """
 
 from __future__ import annotations
@@ -234,7 +247,7 @@ from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops import codec_cuda as K
 from ibu_tpu_torch.ops import stats as S
 from ibu_tpu_torch.ops.correct import variant_deltas
-from ibu_tpu_torch.ops.u64 import records_to_tensor
+from ibu_tpu_torch.ops.u64 import U64_MASK, records_from_tensor, records_to_tensor
 from ibu_tpu_torch.parallel import device as D
 from ibu_tpu_torch.parallel import select as SEL
 from ibu_tpu_torch.validate import run_matrix
@@ -1550,6 +1563,7 @@ def cli_phase(card, wf: dict, fq: dict, workdir: Path) -> dict:
 
 
 COHORT_WORLD = 2  # ranks of phase 13's cohort on the one card
+DRYRUN_RECORDS = 1 << 22  # records a rank of phase 13's dry run (one stream batch)
 LOADER_BATCH = 1 << 20
 
 
@@ -1602,13 +1616,28 @@ def cohort_rank(rank: int, world: int, workdir: Path, device: str | None) -> int
     import torch.distributed as dist
 
     from ibu_tpu_torch.__main__ import main as cli_main
+    from ibu_tpu_torch.entry import dryrun_rank
     from ibu_tpu_torch.parallel import multihost as MH
     from ibu_tpu_torch.parallel import sort as MS
 
     commands = json.loads((workdir / "commands.json").read_text())
     os.environ["IBU_AUTO_ENGINE"] = "device"
-    flags = ["--distributed", "--coordinator", f"file://{workdir / 'store'}",
+    store = f"file://{workdir / 'store'}"
+    flags = ["--distributed", "--coordinator", store,
              "--num-processes", str(world), "--process-id", str(rank)]
+    result: dict = {}
+    # the entry module's dry run first: it joins the cohort the commands then use
+    MH.init_distributed(store, world, rank)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        dry = {"rc": 0, "out": json.dumps(dryrun_rank(rank, world, device, DRYRUN_RECORDS)),
+               "err": ""}
+    except Exception as e:  # noqa: BLE001 (the parent requires rc 0 from every rank)
+        dry = {"rc": 1, "out": "", "err": f"{type(e).__name__}: {e}"}
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    result["dryrun_rank"] = {**dry, "wall": time.perf_counter() - t0, "launches": read_launches()}
     shares, sizes = [], []
     inner_sort = MS._sample_sort
     inner_encode, inner_decode = PL.encode_batch, PL.decode_batch
@@ -1631,7 +1660,6 @@ def cohort_rank(rank: int, world: int, workdir: Path, device: str | None) -> int
 
     MS._sample_sort, PL.encode_batch, PL.decode_batch = spy, encode_spy, decode_spy
     faults = {"run sort": (native, "sort_chunks_range"), "write": (MH, "_pwrite_all")}
-    result: dict = {}
     for cmd in commands:
         key, fault = cmd["key"], cmd["fault"]
         if fault and rank == 1:
@@ -1799,9 +1827,22 @@ def cohort_of_two(card, src: str, want: str, wf: dict, workdir: Path) -> dict:
         require(res["backend"] == "gloo", "two ranks on one card exchange over Gloo")
     require(sum(ranks[r]["share"][0] for r in range(COHORT_WORLD)) == len(MmapReader(src)),
             "the ranks' shares add up to the file")
+    dry = [res["dryrun_rank"] for res in ranks]
+    total = COHORT_WORLD * DRYRUN_RECORDS
+    for r, got in enumerate(dry):
+        log(f"cohort rank {r}: dryrun_rank at {DRYRUN_RECORDS} records a rank: wall "
+            f"{got['wall']:.3f} s (the join in it), launches {got['launches']}, "
+            f"{got['out'] or got['err']}")
+        require(got["rc"] == 0, f"cohort rank {r}: the dry run passes its checks")
+        summary = json.loads(got["out"])
+        require(summary["count"] == summary["all_reduced_count"] == summary["sorted"] == total,
+                f"cohort rank {r}: the dry run merged and sorted {total} records")
+        require(got["launches"]["encode_records"] == 1,
+                f"cohort rank {r}: the dry run launched encode_records once")
+    require(dry[0]["out"] == dry[1]["out"], "the dry run's ranks merged the same state")
 
     singles: dict = {}
-    launches: dict = {}
+    launches: dict = {"dryrun_rank": [got["launches"] for got in dry]}
     for cmd in commands:
         key, argv = cmd["key"], cmd["argv"]
         if cmd["fault"] or key == "lying flag":
@@ -2058,6 +2099,37 @@ def capacity_labs_phase(card) -> None:
     log(f"capacity labs: phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def entry_phase(card) -> int:
+    """Phase 15: the entry point on the card, at its example and at
+    config 1's size; returns ``encode_records``' launches in the phase."""
+    from ibu_tpu_torch import entry as EN
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    fn, example = wall(f"entry() ({EN.EXAMPLE_RECORDS}-record example to the card)", EN.entry)
+    require(all(t.device == card for t in example), "entry() puts its example on the card")
+    host = wall(f"entry: the reference's draws at {N_MAIN} records (numpy)",
+                lambda: EN._example_batch(N_MAIN))
+    full = wall(f"entry: {N_MAIN} records to the card", lambda: tuple(t.to(card) for t in host))
+    del host
+    for args in (example, full):
+        n = len(args[2])
+        records, sums = wall(f"entry fn at {n} records (encode_records and field_sums)",
+                             lambda: fn(*args))
+        require(torch.equal(records, K.plain_encode_records(*args)),
+                f"entry fn at {n} records: the records equal the plain version")
+        host_records = records_from_tensor(records)
+        want = [int(host_records[f].sum(dtype=np.uint64)) for f in ("barcode", "umi", "index")]
+        got = [int(v) & U64_MASK for v in sums.tolist()]
+        require(got == want, f"entry fn at {n} records: the sums {got} equal numpy's {want}")
+        del records, sums, host_records
+    launches = K.encode_records.launches
+    log(f"entry: launches {read_launches()}")
+    require(launches == 2, "entry fn launched encode_records once per step")
+    log(f"entry: phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2124,8 +2196,14 @@ def main() -> int:
         os.environ.pop("IBU_AUTO_ENGINE", None)
     log(f"elapsed before the capacity labs: {time.perf_counter() - t_start:.1f} s")
     capacity_labs_phase(card)
+    log(f"elapsed before the entry phase: {time.perf_counter() - t_start:.1f} s")
+    entry_launches = {"phase 15": entry_phase(card),
+                      "dryrun_rank": [got["encode_records"]
+                                      for got in cohort_launches["dryrun_rank"]]}
     for entry in kernels:
         name = entry["name"]
+        if name == "encode_records":
+            entry["entry_launches"] = entry_launches
         if name in ("encode_records", "decode_records"):
             entry["fastq_launches"] = fastq_launches[name]
             entry["cli_launches"] = {cmd: got[name] for cmd, got in cli_launches.items()
@@ -2133,7 +2211,7 @@ def main() -> int:
             entry["cohort_launches"] = {cmd: [got[name] for got in per_rank]
                                         for cmd, per_rank in cohort_launches.items()
                                         if any(got[name] for got in per_rank)}
-    log(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+    log(f"elapsed: total {time.perf_counter() - t_start:.1f} s (the rule: under 420 s)")
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -46,11 +46,16 @@ class Header:
     need invalid field values.
 
     >>> header = Header.new(16, 12)
-    >>> header.set_sorted()
     >>> (header.bc_len, header.umi_len, header.sorted())
-    (16, 12, True)
+    (16, 12, False)
+    >>> header.set_sorted()
+    >>> header.sorted()
+    True
+    >>> header.validate()  # raises on invalid fields
     >>> Header.from_bytes(header.as_bytes()) == header
     True
+    >>> header.as_bytes()[:4]
+    b'IBU!'
     """
 
     magic: int = MAGIC

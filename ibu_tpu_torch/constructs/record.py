@@ -59,6 +59,14 @@ class Record:
             index=int.from_bytes(data[16:24], "little"),
         )
 
+    # serde parity (reference's optional serde feature, Cargo.toml:22-25)
+    def to_dict(self) -> dict:
+        return {"barcode": self.barcode, "umi": self.umi, "index": self.index}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Record":
+        return cls(barcode=d["barcode"], umi=d["umi"], index=d["index"])
+
     def _key(self):
         return (self.barcode, self.umi, self.index)
 

@@ -83,6 +83,8 @@ def sniff_compression(magic: bytes) -> str | None:
 
     >>> sniff_compression(GZIP_MAGIC + b"\\x08\\x00")
     'gzip'
+    >>> sniff_compression(ZSTD_MAGIC)
+    'zstd'
     >>> sniff_compression(b"IBU!") is None
     True
     """
@@ -294,7 +296,15 @@ EXTENSION_KINDS = {".gz": "gzip", ".zst": "zstd", ".zstd": "zstd"}
 
 
 def infer_compression(path: str) -> str | None:
-    """Classify ``path`` by extension: ``"gzip"``, ``"zstd"``, or ``None``."""
+    """Classify ``path`` by extension: ``"gzip"``, ``"zstd"``, or ``None``.
+
+    >>> infer_compression("data.ibu.gz")
+    'gzip'
+    >>> infer_compression("data.IBU.ZST")
+    'zstd'
+    >>> infer_compression("data.ibu") is None
+    True
+    """
     lower = path.lower()
     for ext, kind in EXTENSION_KINDS.items():
         if lower.endswith(ext):

@@ -37,7 +37,26 @@ class MmapReader:
 
     ``slice(start, end)`` raises ``InvalidIndex(idx=end, max=len)`` when
     ``start >= len``, ``end > len`` or ``end <= start``
-    (``mmap.rs:253-270``).
+    (``mmap.rs:253-270``):
+
+    >>> import os, tempfile
+    >>> from ibu_tpu_torch import Header, MmapReader, Writer, make_records
+    >>> path = os.path.join(tempfile.mkdtemp(), "doc.ibu")
+    >>> with Writer.from_path(path, Header.new(16, 12)) as w:
+    ...     w.write_batch(make_records([1, 4, 7], [2, 5, 8], [3, 6, 9]))
+    >>> m = MmapReader(path)
+    >>> m.len()
+    3
+    >>> [int(b) for b in m.slice(1, 3)["barcode"]]  # zero-copy view
+    [4, 7]
+    >>> try:
+    ...     m.slice(0, 9)
+    ... except Exception as e:
+    ...     print(e)
+    Invalid index (9) - Must be less than 3
+    >>> m.clone().len()  # cheap clone sharing the same mapping
+    3
+    >>> os.remove(path)
     """
 
     def __init__(self, path: str):

@@ -99,6 +99,17 @@ class Reader:
     >>> w.write_batch(make_records([5, 8], [6, 9], [7, 10]))
     >>> w.finish()
     >>> _ = buf.seek(0)
+    >>> r = Reader(buf)
+    >>> r.header().bc_len
+    16
+    >>> [rec.barcode for rec in r]  # per-record iterator (parity path)
+    [5, 8]
+    >>> r.bytes_read  # 32-byte header + 2 * 24-byte records
+    80
+
+    Batches are structured record arrays:
+
+    >>> _ = buf.seek(0)
     >>> [int(u) for u in next(Reader(buf).batches())["umi"]]
     [6, 9]
     """
@@ -255,7 +266,18 @@ def load_to_vec(path: str) -> tuple[Header, np.ndarray]:
     the reference, this path does not sniff compression. From 8 MB of
     records the read goes through the native threaded ``pread``
     (:func:`ibu_tpu_torch.native.pread_parallel`) where the host library is
-    built."""
+    built.
+
+    >>> import os, tempfile
+    >>> from ibu_tpu_torch import Header, Writer, load_to_vec, make_records
+    >>> path = os.path.join(tempfile.mkdtemp(), "doc.ibu")
+    >>> with Writer.from_path(path, Header.new(16, 12)) as w:
+    ...     w.write_batch(make_records([1, 4], [2, 5], [3, 6]))
+    >>> header, records = load_to_vec(path)
+    >>> (header.umi_len, len(records), int(records["index"][1]))
+    (12, 2, 6)
+    >>> os.remove(path)
+    """
     try:
         size = os.path.getsize(path)
         with open(path, "rb") as f:

@@ -36,12 +36,28 @@ class Writer:
     """Buffered writer of IBU record streams.
 
     >>> import io
-    >>> from ibu_tpu_torch import Header, Writer, make_records
+    >>> from ibu_tpu_torch import Header, Record, Writer, make_records
     >>> w = Writer.new(io.BytesIO(), Header.new(16, 12))
     >>> w.write_batch(make_records([4], [5], [6]))
     >>> w.finish()
     >>> (w.records_written, len(w.inner.getvalue()))
     (1, 56)
+
+    In memory, one record at a time, and a headless shard spliced in:
+
+    >>> w = Writer.in_memory(Header.new(16, 12))
+    >>> w.write_record(Record(barcode=1, umi=2, index=3))
+    >>> w.write_batch(make_records([4], [5], [6]))
+    >>> w.records_written
+    2
+    >>> shard = Writer.in_memory()  # headless: no 32-byte header
+    >>> shard.write_record(Record(barcode=7, umi=8, index=9))
+    >>> w.ingest(shard)             # splice shard bytes, clear the shard
+    >>> (w.records_written, len(shard.inner.getvalue()))
+    (3, 0)
+    >>> w.finish()
+    >>> len(w.inner.getvalue())  # 32-byte header + 3 * 24-byte records
+    104
     """
 
     def __init__(self, inner: BinaryIO, header: Header | None,

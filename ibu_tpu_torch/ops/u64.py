@@ -52,7 +52,12 @@ def host_tensor(arr: np.ndarray) -> torch.Tensor:
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array → tensor on ``device``. A CUDA target gets the bytes
     through a pinned staging buffer and an asynchronous copy on the current
-    stream (the caching host allocator keeps the buffer until the copy ends)."""
+    stream (the caching host allocator keeps the buffer until the copy ends).
+
+    >>> t = to_device(np.arange(3, dtype=np.int64), torch.device("cpu"))
+    >>> (t.tolist(), t.dtype)
+    ([0, 1, 2], torch.int64)
+    """
     if device.type == "cpu":
         return host_tensor(arr)
     arr = np.ascontiguousarray(arr)
@@ -65,7 +70,11 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     """Tensor → numpy array on the host. From a card the bytes land in a
     pinned buffer that the returned array keeps alive: a copy into fresh
     pageable memory ran at about 2.3 GB/s on an H100 host, one into pinned
-    memory at link speed."""
+    memory at link speed.
+
+    >>> to_host(torch.tensor([[1, -1]])).tolist()
+    [[1, -1]]
+    """
     t = t.detach().contiguous()
     if t.device.type == "cpu":
         return t.numpy()
@@ -75,7 +84,18 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 
 def records_to_tensor(records: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Structured records → ``(N, 3)`` int64 tensor on ``device``."""
+    """Structured records → ``(N, 3)`` int64 tensor on ``device``.
+
+    >>> from ibu_tpu_torch.constructs.record import make_records
+    >>> recs = make_records(np.array([1, 2**64 - 1], dtype=np.uint64),
+    ...                     np.array([2, 5], dtype=np.uint64),
+    ...                     np.array([3, 6], dtype=np.uint64))
+    >>> t = records_to_tensor(recs, torch.device("cpu"))
+    >>> (tuple(t.shape), t.dtype, t[1].tolist())  # u64 max is int64 -1
+    ((2, 3), torch.int64, [-1, 5, 6])
+    >>> records_from_tensor(t).tobytes() == recs.tobytes()
+    True
+    """
     return to_device(wire_view(records), device)
 
 

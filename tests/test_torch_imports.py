@@ -32,7 +32,7 @@ def test_port_loads_no_jax():
         "import ibu_tpu_torch.__main__, ibu_tpu_torch.parallel.processor\n"
         "import ibu_tpu_torch.examples.random, ibu_tpu_torch.examples.parallel\n"
         "import ibu_tpu_torch.parallel.multihost, ibu_tpu_torch.parallel.sort\n"
-        "import ibu_tpu_torch.data\n"
+        "import ibu_tpu_torch.data, ibu_tpu_torch.entry\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -81,6 +81,13 @@ def test_the_scans_cover_the_cohort_modules():
     scanned = {str(p.relative_to(REPO)) for p in PORT_SOURCES}
     for name in COHORT_MODULES:
         assert f"ibu_tpu_torch/{name}" in scanned
+
+
+def test_the_scans_cover_the_entry_module():
+    """``ibu_tpu_torch/entry.py`` (the entry points) is in the AST
+    scan; both fresh-process tests import it."""
+    scanned = {str(p.relative_to(REPO)) for p in PORT_SOURCES}
+    assert "ibu_tpu_torch/entry.py" in scanned
 
 
 LAB_MODULES = ("engine_capacity_lab", "histogram_capacity_lab", "molcount_capacity_lab",

@@ -8,7 +8,9 @@ size and ``kwargs``. Each rank writes ``{name: ("ok", value)}`` or ``{name:
 ("err", exception type, text)}`` to a file; :func:`launch` returns them by
 rank. Every rank runs under one deadline: a rank still running at it is
 killed with the rest and the launch fails, so a hang fails its test instead
-of stalling the suite.
+of stalling the suite. :func:`launch_exits` also returns each rank's exit
+code, a rank whose task raised exiting 3, for tests that need every rank of a
+failing cohort to exit nonzero.
 
 Run as a script, the module is one rank: ``python tests/torch_cohort.py
 TASKS STORE WORLD RANK``.
@@ -30,14 +32,15 @@ REPO = Path(__file__).resolve().parents[1]
 TIMEOUT = 240
 
 
-def launch(world: int, tasks: list, workdir, init: bool = True, timeout: float = TIMEOUT):
-    """Run ``tasks`` in every rank of a ``world``-rank cohort (joined with
-    ``init_distributed`` first unless ``init`` is false: the CLI joins by
-    its own flags); returns each rank's results, by rank."""
+def _run(world: int, tasks: list, workdir, init: bool, timeout: float,
+         exit_on_error: bool) -> list[int]:
+    """Start the ranks, wait for every one under one deadline (killing them
+    all at it) and return their exit codes."""
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     spec = workdir / "tasks.pkl"
-    spec.write_bytes(pickle.dumps({"tasks": tasks, "init": init}))
+    spec.write_bytes(pickle.dumps({"tasks": tasks, "init": init,
+                                   "exit_on_error": exit_on_error}))
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     env.pop("IBU_POD_SORT_ENGINE", None)
     procs = [
@@ -60,9 +63,29 @@ def launch(world: int, tasks: list, workdir, init: bool = True, timeout: float =
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{logs[r]}"
-    return [pickle.loads((workdir / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+    if not exit_on_error:
+        for r, p in enumerate(procs):
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{logs[r]}"
+    return [p.returncode for p in procs]
+
+
+def _results(workdir, world: int) -> list:
+    return [pickle.loads((Path(workdir) / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+
+
+def launch(world: int, tasks: list, workdir, init: bool = True, timeout: float = TIMEOUT):
+    """Run ``tasks`` in every rank of a ``world``-rank cohort (joined with
+    ``init_distributed`` first unless ``init`` is false: the CLI joins by
+    its own flags); returns each rank's results, by rank."""
+    _run(world, tasks, workdir, init, timeout, exit_on_error=False)
+    return _results(workdir, world)
+
+
+def launch_exits(world: int, tasks: list, workdir, timeout: float = TIMEOUT):
+    """:func:`launch`, but a rank whose task raised exits 3: returns each
+    rank's exit code and its results, by rank."""
+    rcs = _run(world, tasks, workdir, True, timeout, exit_on_error=True)
+    return rcs, _results(workdir, world)
 
 
 @contextlib.contextmanager
@@ -322,6 +345,32 @@ def cli_failing_on_rank1(rank, world, argv):
         return cli(rank, world, argv, env="host")
 
 
+def fuzz_tool(rank, world, tool, in_path, out, allow_path, fail_rank):
+    """One cohort tool of the failure-injection fuzz on ``device="cpu"``,
+    with rank ``fail_rank``'s first write raising (the host sort's merge,
+    which writes through the native library, for ``sort-host``)."""
+    import numpy as np
+
+    from ibu_tpu_torch import native
+    from ibu_tpu_torch.parallel import multihost as MH
+
+    def boom(*args, **kwargs):
+        raise OSError(28, "injected ENOSPC (fuzz)")
+
+    owner, name = (native, "merge_runs_interval") if tool == "sort-host" else (MH, "_pwrite_all")
+    allow = np.loadtxt(allow_path, dtype=np.uint64, ndmin=1)
+    calls = {
+        "dedup": lambda: MH.multihost_dedup_file(in_path, out, device="cpu"),
+        "filter": lambda: MH.multihost_filter_file(in_path, out, allow),
+        "correct": lambda: MH.multihost_correct_file(in_path, out, allow, device="cpu"),
+        "count": lambda: MH.multihost_count_matrix(in_path, out),
+        "sort-host": lambda: MH.multihost_sort_file(in_path, out, device="cpu", engine="host"),
+        "sort-mesh": lambda: MH.multihost_sort_file(in_path, out, device="cpu", engine="mesh"),
+    }
+    with patched(owner, name, boom if rank == fail_rank else getattr(owner, name)):
+        return calls[tool]()
+
+
 #: the rendezvous file of this rank's cohort
 STORE = ""
 
@@ -349,6 +398,8 @@ def _main(spec: str, store: str, world: int, rank: int) -> None:
     if dist.is_initialized():
         dist.barrier()
         dist.destroy_process_group()
+    if job["exit_on_error"] and any(r[0] == "err" for r in results.values()):
+        sys.exit(3)
 
 
 if __name__ == "__main__":
