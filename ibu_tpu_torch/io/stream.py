@@ -38,6 +38,7 @@ import torch
 from ibu_tpu_torch.io.mmap import STREAM_BATCH_RECORDS, STREAM_PREFETCH, MmapReader
 from ibu_tpu_torch.ops.u64 import wire_view
 from ibu_tpu_torch.parallel.device import bc16_hint, record_batches_from_mmap
+from ibu_tpu_torch.utils import trace
 from ibu_tpu_torch.utils.device import resolve_device
 
 
@@ -145,7 +146,11 @@ class DeviceStream:
             self._iter = prefetched(self._copy_all_cpu(), depth)
 
     def _hint(self, host: np.ndarray) -> bool | None:
-        return bc16_hint(host) if self._with_hint else None
+        if not self._with_hint:
+            return None
+        # the first touch of the batch's pages when it is a view of a mapping
+        with trace.span("stream.hint"):
+            return bc16_hint(host)
 
     def _copy_all_cpu(self):
         for batch in self._batches:
@@ -159,14 +164,19 @@ class DeviceStream:
             slot = self._ring[k % len(self._ring)]
             buf, done = slot
             if done is not None:
-                done.synchronize()
+                with trace.span("stream.slot_wait"):
+                    done.synchronize()
             if buf is None or buf.shape[0] < host.shape[0]:
-                buf = torch.empty(host.shape, dtype=torch.int64, pin_memory=True)
+                with trace.span("h2d.pinned_alloc"):
+                    buf = torch.empty(host.shape, dtype=torch.int64, pin_memory=True)
             staged = buf[: host.shape[0]]
-            staged.numpy()[...] = host
+            with trace.span("h2d.stage"):
+                trace.count("staged_bytes", host.nbytes)
+                staged.numpy()[...] = host
             with torch.cuda.stream(self._copy_stream):
                 dev = torch.empty(host.shape, dtype=torch.int64, device=self._device)
                 dev.copy_(staged, non_blocking=True)
+                trace.count("h2d_bytes", host.nbytes)
                 done = torch.cuda.Event()
                 done.record(self._copy_stream)
             slot[0], slot[1] = buf, done

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ibu_tpu_torch.ops.u64 import SIGN_BIT, U64_MASK, flip_sign
+from ibu_tpu_torch.utils import trace
 
 _FIELDS = ("barcode", "umi", "index")
 _LO32 = 0xFFFFFFFF
@@ -108,7 +109,13 @@ def sort_records(
     )
     if check and not all(hi_used):
         dropped = [f for f in range(3) if not hi_used[f]]
-        nz = ((records[:, dropped] >> 32) != 0).any(dim=0).tolist()
+        flags = ((records[:, dropped] >> 32) != 0).any(dim=0)
+        if flags.is_cuda:
+            with trace.span("d2h.wait"):
+                trace.count("d2h_bytes", flags.numel() * flags.element_size())
+                nz = flags.tolist()
+        else:
+            nz = flags.tolist()
         if any(nz):
             bad = [_FIELDS[f] for f, z in zip(dropped, nz) if z]
             raise ValueError(

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ibu_tpu_torch.constructs.record import RECORD_DTYPE
+from ibu_tpu_torch.utils import trace
 
 U64_MASK = (1 << 64) - 1
 #: int64 with only bit 63 set.
@@ -61,8 +62,12 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cpu":
         return host_tensor(arr)
     arr = np.ascontiguousarray(arr)
-    staged = torch.empty(arr.shape, dtype=_TORCH_DTYPE[arr.dtype], pin_memory=True)
-    staged.numpy()[...] = arr
+    with trace.span("h2d.pinned_alloc"):
+        staged = torch.empty(arr.shape, dtype=_TORCH_DTYPE[arr.dtype], pin_memory=True)
+    with trace.span("h2d.stage"):
+        trace.count("staged_bytes", arr.nbytes)
+        staged.numpy()[...] = arr
+    trace.count("h2d_bytes", arr.nbytes)
     return staged.to(device, non_blocking=True)
 
 
@@ -78,8 +83,11 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     t = t.detach().contiguous()
     if t.device.type == "cpu":
         return t.numpy()
-    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    out.copy_(t)
+    with trace.span("h2d.pinned_alloc"):
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with trace.span("d2h.wait"):
+        trace.count("d2h_bytes", out.numel() * out.element_size())
+        out.copy_(t)
     return out.numpy()
 
 

@@ -40,6 +40,7 @@ from ibu_tpu_torch.ops.u64 import (
     to_host,
     wire_view,
 )
+from ibu_tpu_torch.utils import trace
 from ibu_tpu_torch.utils.device import resolve_device
 
 
@@ -354,8 +355,10 @@ def _fetch_async(t: torch.Tensor):
     None on the CPU. Waiting on the event waits for this copy only."""
     if t.device.type == "cpu":
         return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with trace.span("h2d.pinned_alloc"):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
+    trace.count("d2h_bytes", host.numel() * host.element_size())
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(t.device))
     return host, done
@@ -438,35 +441,37 @@ class DeviceHistogram:
     def update_placed(self, records: torch.Tensor, bc16: bool = False) -> None:
         """Fold one ``(B, 3)`` int64 batch already on the device.
         ``bc16=True`` is caller-verified (all barcodes < 2^32)."""
-        hist = _masked_histogram_sorted if self.assume_sorted else _masked_histogram
-        keys, counts, seen = hist(records, self.max_uniques_per_shard, bc16)
-        st = self._state
-        st["st_keys"][self._filled] = keys
-        st["st_cnt"][self._filled] = counts
-        torch.maximum(st["shard_seen"], seen, out=st["shard_seen"])
-        self._filled += 1
-        if self._filled >= self.merge_every:
-            self._run_merge()
+        with trace.span("hist.update"):
+            hist = _masked_histogram_sorted if self.assume_sorted else _masked_histogram
+            keys, counts, seen = hist(records, self.max_uniques_per_shard, bc16)
+            st = self._state
+            st["st_keys"][self._filled] = keys
+            st["st_cnt"][self._filled] = counts
+            torch.maximum(st["shard_seen"], seen, out=st["shard_seen"])
+            self._filled += 1
+            if self._filled >= self.merge_every:
+                self._run_merge()
 
     def _run_merge(self) -> None:
-        st = self._state
-        keys = torch.cat([st["keys"], st["st_keys"].reshape(-1)])
-        cnt = torch.cat([st["cnt"], st["st_cnt"].reshape(-1)])
-        if self.spill:
-            # drain the previous cycle's overflow first: that merge has had
-            # merge_every batches of device work to finish
-            self._drain_pending()
-            # the lane holds every staged entry, so it never drops a group
-            lane = self.merge_every * self.max_uniques_per_shard
-            st["keys"], st["cnt"], n_distinct, o_keys, o_cnt, ovf_n = (
-                _sparse_group_sum_spill(keys, cnt, self.capacity, lane)
-            )
-            self._pending = (_fetch_async(ovf_n), o_keys, o_cnt)
-        else:
-            st["keys"], st["cnt"], n_distinct = _sparse_group_sum(keys, cnt, self.capacity)
-        torch.maximum(st["n"], n_distinct, out=st["n"])
-        st["st_cnt"].zero_()  # a zero count marks an empty staged entry
-        self._filled = 0
+        with trace.span("hist.merge"):
+            st = self._state
+            keys = torch.cat([st["keys"], st["st_keys"].reshape(-1)])
+            cnt = torch.cat([st["cnt"], st["st_cnt"].reshape(-1)])
+            if self.spill:
+                # drain the previous cycle's overflow first: that merge has had
+                # merge_every batches of device work to finish
+                self._drain_pending()
+                # the lane holds every staged entry, so it never drops a group
+                lane = self.merge_every * self.max_uniques_per_shard
+                st["keys"], st["cnt"], n_distinct, o_keys, o_cnt, ovf_n = (
+                    _sparse_group_sum_spill(keys, cnt, self.capacity, lane)
+                )
+                self._pending = (_fetch_async(ovf_n), o_keys, o_cnt)
+            else:
+                st["keys"], st["cnt"], n_distinct = _sparse_group_sum(keys, cnt, self.capacity)
+            torch.maximum(st["n"], n_distinct, out=st["n"])
+            st["st_cnt"].zero_()  # a zero count marks an empty staged entry
+            self._filled = 0
 
     def _drain_pending(self) -> None:
         if self._pending is None:
@@ -474,7 +479,8 @@ class DeviceHistogram:
         (ovf_n, done), o_keys, o_cnt = self._pending
         self._pending = None
         if done is not None:
-            done.synchronize()
+            with trace.span("d2h.wait"):
+                done.synchronize()
         n = int(ovf_n)
         if n == 0:
             return
@@ -502,13 +508,14 @@ class DeviceHistogram:
             return self._finalize_cohort(failed)
         if failed is not None:
             raise failed
-        seen, n, keys, cnt = self._local_table()
-        self._check(seen, n)
-        out = dict(zip(keys.view(np.uint64).tolist(), cnt.tolist()))
-        # a spilled key can re-enter the table later, so counts add
-        for k, c in self._spilled.items():
-            out[k] = out.get(k, 0) + c
-        return out
+        with trace.span("hist.finalize"):
+            seen, n, keys, cnt = self._local_table()
+            self._check(seen, n)
+            out = dict(zip(keys.view(np.uint64).tolist(), cnt.tolist()))
+            # a spilled key can re-enter the table later, so counts add
+            for k, c in self._spilled.items():
+                out[k] = out.get(k, 0) + c
+            return out
 
     def _local_table(self):
         """This rank's ``(n_seen, n, keys, counts)``: the flushed table's
@@ -574,18 +581,20 @@ def stream_file_histogram(
     lying flag raises rather than miscounting."""
     from ibu_tpu_torch.io.stream import stream_file
 
-    if assume_sorted is None:
-        assume_sorted = reader.header().sorted()
-    device = resolve_device(device)
-    hist = DeviceHistogram(
-        capacity=capacity,
-        max_uniques_per_shard=max_uniques_per_shard,
-        spill=spill,
-        assume_sorted=assume_sorted,
-        device=device,
-    )
-    for records, bc16 in stream_file(
-        reader, device=device, batch_records=batch_records, with_hint=True
-    ):
-        hist.update_placed(records, bc16=bc16)
-    return hist.finalize()
+    with trace.span("ibu.stream_file_histogram"):
+        trace.count("records", reader.len())
+        if assume_sorted is None:
+            assume_sorted = reader.header().sorted()
+        device = resolve_device(device)
+        hist = DeviceHistogram(
+            capacity=capacity,
+            max_uniques_per_shard=max_uniques_per_shard,
+            spill=spill,
+            assume_sorted=assume_sorted,
+            device=device,
+        )
+        for records, bc16 in stream_file(
+            reader, device=device, batch_records=batch_records, with_hint=True
+        ):
+            hist.update_placed(records, bc16=bc16)
+        return hist.finalize()

@@ -55,6 +55,7 @@ from ibu_tpu_torch.io.mmap import MmapReader
 from ibu_tpu_torch.io.reader import Reader
 from ibu_tpu_torch.io.writer import Writer
 from ibu_tpu_torch.ops import codec as C
+from ibu_tpu_torch.utils import trace
 
 if TYPE_CHECKING:
     import torch
@@ -95,26 +96,28 @@ def encode_batch(
     host codec none. ``"device"`` runs the codec kernel on ``device``;
     ``"host"`` the native host codec (:mod:`ibu_tpu_torch.native`; numpy
     where it is not built). The numerics are the same either way."""
-    engine = _codec_engine(engine, device)
-    if engine == "host":
-        if native.available():
-            bc = native.pack_2bit(np.ascontiguousarray(bc_rows), validate=False)
-            umi = native.pack_2bit(np.ascontiguousarray(umi_rows), validate=False)
-        else:
-            bc = C.np_pack(bc_rows)
-            umi = C.np_pack(umi_rows)
-        return make_records(bc, umi, np.asarray(index, dtype=np.uint64))
-    from ibu_tpu_torch.ops.codec_cuda import encode_records
-    from ibu_tpu_torch.ops.u64 import records_from_tensor, to_device, u64_as_int64
-    from ibu_tpu_torch.utils.device import resolve_device
+    with trace.span("ibu.encode_batch"):
+        trace.count("records", len(bc_rows))
+        engine = _codec_engine(engine, device)
+        if engine == "host":
+            if native.available():
+                bc = native.pack_2bit(np.ascontiguousarray(bc_rows), validate=False)
+                umi = native.pack_2bit(np.ascontiguousarray(umi_rows), validate=False)
+            else:
+                bc = C.np_pack(bc_rows)
+                umi = C.np_pack(umi_rows)
+            return make_records(bc, umi, np.asarray(index, dtype=np.uint64))
+        from ibu_tpu_torch.ops.codec_cuda import encode_records
+        from ibu_tpu_torch.ops.u64 import records_from_tensor, to_device, u64_as_int64
+        from ibu_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(device)
-    records = encode_records(
-        _rows_to_device(bc_rows, device),
-        _rows_to_device(umi_rows, device),
-        to_device(u64_as_int64(index), device),
-    )
-    return records_from_tensor(records)
+        device = resolve_device(device)
+        records = encode_records(
+            _rows_to_device(bc_rows, device),
+            _rows_to_device(umi_rows, device),
+            to_device(u64_as_int64(index), device),
+        )
+        return records_from_tensor(records)
 
 
 def decode_batch(
@@ -127,26 +130,28 @@ def decode_batch(
     """Structured records → ASCII rows ``(N, bc_len)``, ``(N, umi_len)``,
     and the ``uint64`` index column. Engine selection as in
     :func:`encode_batch`."""
-    engine = _codec_engine(engine, device)
-    if engine == "host":
-        bc_words = np.ascontiguousarray(records["barcode"])
-        umi_words = np.ascontiguousarray(records["umi"])
-        if native.available():
-            bc_rows = native.unpack_2bit(bc_words, bc_len)
-            umi_rows = native.unpack_2bit(umi_words, umi_len)
-        else:
-            bc_rows = C.np_unpack(bc_words, bc_len)
-            umi_rows = C.np_unpack(umi_words, umi_len)
-        return bc_rows, umi_rows, np.asarray(records["index"])
-    from ibu_tpu_torch.ops.codec_cuda import decode_records
-    from ibu_tpu_torch.ops.u64 import records_to_tensor, to_host
-    from ibu_tpu_torch.utils.device import resolve_device
+    with trace.span("ibu.decode_batch"):
+        trace.count("records", len(records))
+        engine = _codec_engine(engine, device)
+        if engine == "host":
+            bc_words = np.ascontiguousarray(records["barcode"])
+            umi_words = np.ascontiguousarray(records["umi"])
+            if native.available():
+                bc_rows = native.unpack_2bit(bc_words, bc_len)
+                umi_rows = native.unpack_2bit(umi_words, umi_len)
+            else:
+                bc_rows = C.np_unpack(bc_words, bc_len)
+                umi_rows = C.np_unpack(umi_words, umi_len)
+            return bc_rows, umi_rows, np.asarray(records["index"])
+        from ibu_tpu_torch.ops.codec_cuda import decode_records
+        from ibu_tpu_torch.ops.u64 import records_to_tensor, to_host
+        from ibu_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(device)
-    bc, umi, index = decode_records(
-        records_to_tensor(records, device), bc_len, umi_len
-    )
-    return to_host(bc), to_host(umi), to_host(index).view(np.uint64)
+        device = resolve_device(device)
+        bc, umi, index = decode_records(
+            records_to_tensor(records, device), bc_len, umi_len
+        )
+        return to_host(bc), to_host(umi), to_host(index).view(np.uint64)
 
 
 def sort_batch(
@@ -159,14 +164,16 @@ def sort_batch(
     """Device lexicographic sort of a structured record array; the hints
     shorten the sort keys and a violated hint raises
     (:func:`ibu_tpu_torch.ops.stats.sort_records`)."""
-    from ibu_tpu_torch.ops.stats import sort_records
-    from ibu_tpu_torch.ops.u64 import records_from_tensor, records_to_tensor
-    from ibu_tpu_torch.utils.device import resolve_device
+    with trace.span("ibu.sort_batch"):
+        trace.count("records", len(records))
+        from ibu_tpu_torch.ops.stats import sort_records
+        from ibu_tpu_torch.ops.u64 import records_from_tensor, records_to_tensor
+        from ibu_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(device)
-    return records_from_tensor(
-        sort_records(records_to_tensor(records, device), bc_len, umi_len, index_bits)
-    )
+        device = resolve_device(device)
+        return records_from_tensor(
+            sort_records(records_to_tensor(records, device), bc_len, umi_len, index_bits)
+        )
 
 
 def encode_sorted_file(
@@ -892,27 +899,29 @@ def file_stats(
     (:func:`ibu_tpu_torch.native.checksum_parallel`); ``"host"`` runs
     :func:`host_file_stats` (numpy). The returned dict names the engine that
     ran under ``"engine"``."""
-    _require_plain(path, "stats")
-    reader = MmapReader(path)
-    n = reader.len()
-    if engine == "auto":
-        from ibu_tpu_torch.parallel.select import auto_stats_engine
+    with trace.span("ibu.file_stats"):
+        _require_plain(path, "stats")
+        reader = MmapReader(path)
+        n = reader.len()
+        trace.count("records", n)
+        if engine == "auto":
+            from ibu_tpu_torch.parallel.select import auto_stats_engine
 
-        engine = auto_stats_engine(path, n, device=device)
-    if engine == "native":
-        if not native.available():
-            raise RuntimeError(f"native runtime unavailable: {native.load_error()}")
-        bc, umi, idx = native.checksum_parallel(path, n)
-        stats = {"count": n, "barcode_sum": bc, "umi_sum": umi, "index_sum": idx}
-    elif engine == "host":
-        stats = host_file_stats(reader)
-    elif engine == "device":
-        from ibu_tpu_torch.parallel.device import stream_file_stats
+            engine = auto_stats_engine(path, n, device=device)
+        if engine == "native":
+            if not native.available():
+                raise RuntimeError(f"native runtime unavailable: {native.load_error()}")
+            bc, umi, idx = native.checksum_parallel(path, n)
+            stats = {"count": n, "barcode_sum": bc, "umi_sum": umi, "index_sum": idx}
+        elif engine == "host":
+            stats = host_file_stats(reader)
+        elif engine == "device":
+            from ibu_tpu_torch.parallel.device import stream_file_stats
 
-        stats = stream_file_stats(reader, device=device)
-    else:
-        raise ValueError(f"engine must be auto/device/native/host, got {engine!r}")
-    return {**stats, "engine": engine}
+            stats = stream_file_stats(reader, device=device)
+        else:
+            raise ValueError(f"engine must be auto/device/native/host, got {engine!r}")
+        return {**stats, "engine": engine}
 
 
 # ---------------------------------------------------------------------------
