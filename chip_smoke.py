@@ -18,19 +18,33 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    a numpy oracle, decode of that file, and device file statistics of a
    10M-record file against the native engine and numpy. Both record kernels'
    launch counters are zeroed just before this phase and must be positive
-   after it;
+   after it; the record sort's (``sort_cuda.field_ors`` and
+   ``sort_cuda.sort_records``) are zeroed too and must count the one sort of
+   ``encode_sorted_file``;
 5. run the validation matrix (:func:`ibu_tpu_torch.validate.run_matrix`) on
    the card: 27 of 27 checks, named as in ``TPU_VALIDATE.json``. All four
    kernels' launch counters are zeroed just before it and must be positive
-   after it;
+   after it; the record sort's must count its two sorts;
 6. drive the histogram path at 10M bc16/umi12 records with Zipf-distributed
-   barcodes: ``stream_file_histogram`` and ``barcode_counts(engine="device")``
+   barcodes: ``sort_batch`` with the bc16/umi12/32-bit hints (held record
+   for record against the plain sort; the record sort's launch counters
+   zeroed just before it must count one sort), ``stream_file_histogram`` and
+   ``barcode_counts(engine="device")``
    on the unsorted file and on a sorted copy (the fast path) against the host
    engine and numpy, the spill path and the strict capacity error, a lying
    sorted flag, a gzip stream into ``DeviceHistogram.run``, and the molecule
    and pair molecule counts of 1M records against their numpy oracles;
 7. time each kernel and its plain version at 10M records with CUDA events
-   over distinct inputs, and check the two agree at that size;
+   over distinct inputs, and check the two agree at that size; then the
+   record sort (``csrc/record_sort.cu``) in each mode of ``SORT_MODES`` at
+   10M records, called as ``stats.sort_records``' callers call it (phase 6's
+   hinted ``sort_batch``, the same records unhinted, where the key and its
+   passes are sized by the 192-bit bound, and the ``dropseq.sort`` cell's
+   call): on 3 input sets the sort held exactly against
+   ``plain_sort_records`` and ``field_ors`` against ``plain_field_ors``,
+   then timed beside them and beside ``torch.sort`` of the packed key, with
+   each of its four kernels' device time and launches a sort from
+   ``torch.profiler``;
 8. run both codec labs (:mod:`ibu_tpu_torch.labs.sol_lab` and
    :mod:`ibu_tpu_torch.labs.kernel_lab`) at 10M records: every variant and
    layout checked exactly against the host oracle, then timed, with the copy
@@ -61,7 +75,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     ``count_matrix(engine="device")`` (byte-identical to ``engine="host"``),
     every matrix entry in the planted truth. The codec kernels' launch
     counters are zeroed just before the phase; ``encode_records``' must be
-    positive after it. Each stage's wall time is printed, the
+    positive after it, and the record sort's must count two sorts
+    (``encode_sorted_file`` and ``sort_file_device``). Each stage's wall time is printed, the
     ``torch.profiler`` device time of one more run of ``correct_file``, and
     ``cProfile``'s heaviest host functions of one more run of it and of
     ``dedup_file``;
@@ -120,7 +135,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     cells (random UMIs, indices under 20,000, made from the seed): a world of
     one on NCCL in this process (``sharded_sort_records``, ``sort_file_mesh``,
     ``multihost_sort_file`` with the mesh and host engines, each byte-equal to
-    ``native.sort_file``; ``multihost_file_stats`` and
+    ``native.sort_file``, the record sort's launch counters zeroed before each
+    and counting two sorts a mesh sort and none for the host engine;
+    ``multihost_file_stats`` and
     ``multihost_barcode_histogram`` equal to the native and host engines),
     the group destroyed after; two ranks on the one card, one launch of this
     script as the rank workers under ``IBU_AUTO_ENGINE=device``, each running
@@ -129,7 +146,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     (:func:`ibu_tpu_torch.entry.dryrun_rank` at 2^22 records a rank: encode,
     fold, ``all_reduce`` of the count, the merge, and ``sharded_sort_records``
     of the reference's records, each against numpy, ``encode_records``
-    launched once a rank; it joins the cohort the commands then use), then
+    launched once a rank and the record sort twice; it joins the cohort the
+    commands then use), then
     ``sort --engine mesh``, ``sort --engine pod``
     (``IBU_POD_SORT_ENGINE=host``), ``stats`` and ``histogram --top 20`` on
     the cohort file; ``correct`` of phase 10's raw file (equal to phase 10's
@@ -157,8 +175,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     at 2^20-record batches (sequential, ``"global"``, two ``"blocks"``
     epochs): every batch's checksum on the card equal to ``host_batches``',
     each epoch an exact permutation, the two epochs different, two shards an
-    exact union, and the card's busy share of one profiled epoch (this leg
-    runs first). Each leg's wall is printed;
+    exact union (the record sort counting the two sorts, the file's sort
+    equal to the plain version), and the card's busy share of one profiled
+    epoch (this leg runs first). Each leg's wall is printed;
 14. run the device-capacity and feed labs (:mod:`ibu_tpu_torch.labs`), each
     through its ``main(argv)`` in this process, at sizes that keep the phase
     near a minute: ``engine_capacity_lab`` (8 resident 2^20-record batches,
@@ -187,7 +206,8 @@ Phases 1-10 name ``engine="device"`` where they assert launches; only
 ``IBU_AUTO_ENGINE=device``, as phase 11's legs and phase 13's ranks do.
 
 The second-to-last line is a JSON object with one entry per kernel (the four
-production kernels, the six codec lab kernels with each mode's figures under
+production kernels, the record sort's four kernels with each mode's figures
+under ``modes``, the six codec lab kernels with each mode's figures under
 ``modes``, then the three sort lab kernels). Each entry has its time
 (``ms``), its plain version's (``plain_ms``), its bound (``bound_ms``: the
 bytes it must move, each input read once and each output written once, over
@@ -195,7 +215,11 @@ the H100's 3350 GB/s; the sort lab's own count for its kernels, in which
 ``dynamic_store`` reads only the key rows its offsets select) and, where
 PyTorch computes the same function, that time (``library_ms``, else null:
 for ``digit_histogram`` the index pass and ``torch.bincount`` together, the
-call alone under ``bincount_ms``). The last line is
+call alone under ``bincount_ms``; for the record sort ``torch.sort`` of the
+packed key, and its plain version is the whole plain sort, but for
+``field_or_kernel``, whose is ``plain_field_ors``; its ``launches`` are its
+wrapper's in each leg that counts them, its bound counts the passes over
+live digits alone). The last line is
 ``{"ok": true, "device": {...}}``. The two record kernels also carry
 ``fastq_launches``, their launches in phase 11's device legs,
 ``cli_launches``, their launches under phase 12's in-process commands, and
@@ -212,6 +236,7 @@ import functools
 import io
 import json
 import os
+import re
 import resource
 import shutil
 import subprocess
@@ -245,9 +270,10 @@ from ibu_tpu_torch.labs import (
 from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops import codec_cuda as K
+from ibu_tpu_torch.ops import sort_cuda as SC
 from ibu_tpu_torch.ops import stats as S
 from ibu_tpu_torch.ops.correct import variant_deltas
-from ibu_tpu_torch.ops.u64 import U64_MASK, records_from_tensor, records_to_tensor
+from ibu_tpu_torch.ops.u64 import U64_MASK, flip_sign, records_from_tensor, records_to_tensor
 from ibu_tpu_torch.parallel import device as D
 from ibu_tpu_torch.parallel import select as SEL
 from ibu_tpu_torch.validate import run_matrix
@@ -298,6 +324,33 @@ KERNELS = {
     "decode_records": (K.decode_records, K.plain_decode_records, 327),
     "encode_planes": (K.encode_planes, K.plain_encode_planes, 166),
     "decode_planes": (K.decode_planes, K.plain_decode_planes, 205),
+}
+#: the record sort's wrappers (``ops/sort_cuda.py``): each sort on the card
+#: launches ``field_ors`` once (the hint check's, or the sort's own) and
+#: ``sort_records`` once
+SORT_WRAPPERS = {"field_ors": SC.field_ors, "sort_records": SC.sort_records}
+#: the record sort's launches in each leg that counts them, filled as the
+#: legs run; the kernels line carries them
+SORT_LAUNCHES: dict = {}
+#: the record sort's kernels (``csrc/record_sort.cu``) in launch order, the
+#: wrapper that launches each, and the bytes each must move a record for a
+#: key of ``w`` u64 words: the records read or written (24 B) and the key
+#: words (8 B each), read and written once a pass
+SORT_KERNELS = {
+    "field_or_kernel": ("field_ors", lambda w: 24),
+    "pack_kernel": ("sort_records", lambda w: 24 + 8 * w),
+    "pass_kernel": ("sort_records", lambda w: 16 * w),  # one pass over a live digit
+    "unpack_kernel": ("sort_records", lambda w: 8 * w + 24),
+}
+#: the record sort at the main path's shapes: mode → (each field's bits,
+#: ``stats.sort_records``' hints). ``sort_batch`` is phase 6's hinted call
+#: (the hint check reads the ORs; exact passes), ``unhinted`` the same
+#: records with no hints (no check, passes to the 192-bit bound, the empty
+#: ones skipped on the card), ``dropseq`` the ``dropseq.sort`` cell's call
+SORT_MODES = {
+    "sort_batch": ((32, 24, 24), {"bc_len": 16, "umi_len": 12, "index_bits": 32}),
+    "unhinted": ((32, 24, 24), {}),
+    "dropseq": ((24, 16, 16), {"bc_len": 12, "umi_len": 8, "index_bits": 32}),
 }
 SEED = 0
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -510,6 +563,26 @@ def read_launches() -> dict:
     return {name: kernel.launches for name, (kernel, _, _) in KERNELS.items()}
 
 
+def reset_sort_launches() -> None:
+    for wrapper in SORT_WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_sort_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in SORT_WRAPPERS.items()}
+
+
+def require_sorts(leg: str, sorts: int, got: dict | None = None) -> None:
+    """``leg`` launched the record sort ``sorts`` times since the last
+    :func:`reset_sort_launches` (or ``got`` says so): once each of
+    ``field_ors`` and ``sort_records`` a sort. Kept in :data:`SORT_LAUNCHES`."""
+    got = read_sort_launches() if got is None else got
+    SORT_LAUNCHES[leg] = got
+    log(f"record sort launches: {leg}: {got}")
+    require(got == {"field_ors": sorts, "sort_records": sorts},
+            f"{leg} launched the record sort {sorts} time(s): {got}")
+
+
 def matrix_phase(card) -> dict:
     """Phase 5: the validation matrix on the card, as ``python -m
     ibu_tpu_torch.validate`` runs it."""
@@ -562,9 +635,15 @@ def histogram_path(card, n: int, workdir: Path) -> None:
         f"largest count {int(want_counts.max())}")
 
     unsorted = write_ibu(workdir / "hist.ibu", records)
+    reset_sort_launches()
     srt = wall(f"sort_batch {n}", lambda: PL.sort_batch(
         records, bc_len=BC_LEN, umi_len=UMI_LEN, index_bits=32, device=card))
+    require_sorts("sort_batch (phase 6)", 1)
     require(np.array_equal(srt["barcode"], np.sort(bc)), "sort_batch orders the barcodes")
+    plain = SC.plain_sort_records(records_to_tensor(records, card), (False, False, False))
+    require(srt.tobytes() == records_from_tensor(plain).tobytes(),
+            "sort_batch equals the plain version, record for record")
+    del plain
     sorted_path = write_ibu(workdir / "hist_sorted.ibu", srt, sorted_flag=True)
 
     host = wall(f"barcode_counts host {n}", lambda: PL.barcode_counts(unsorted, engine="host"))
@@ -704,6 +783,134 @@ def time_kernels(card, n: int, launches: dict) -> list[dict]:
             "library_ms": None,  # no one PyTorch call packs or unpacks 2-bit bases
             "gbps": gbps,
             "plain_gbps": plain_gbps,
+        })
+    return out
+
+
+def kernel_ms_by_name(fn, sets, names, iters: int = 8) -> dict | None:
+    """``{name: (device ms, launches)}`` a call of ``fn`` over ``sets``, for
+    each kernel whose name holds one of ``names``, from ``torch.profiler``;
+    ``None`` when the profiler recorded no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    got = {name: (0.0, 0.0) for name in names}
+    for e in events:
+        for name in names:
+            if re.search(rf"\b{name}\b", e.name):  # pack_kernel is not unpack_kernel
+                ms, k = got[name]
+                got[name] = (ms + e.time_range.elapsed_us() / iters / 1e3, k + 1 / iters)
+    return got
+
+
+def library_sort(*words: torch.Tensor) -> torch.Tensor:
+    """``torch.sort`` of the packed key: the stable sort of each u64 word,
+    least significant first, with the gathers between (one sort for a
+    one-word key); returns the permutation."""
+    perm = None
+    for w in words:
+        key = w if perm is None else w[perm]
+        order = torch.sort(flip_sign(key), stable=True).indices
+        perm = order if perm is None else perm[order]
+    return perm
+
+
+def record_sort_phase(card, n: int) -> list[dict]:
+    """Phase 7, the record sort: each mode of :data:`SORT_MODES` at ``n``
+    records through ``stats.sort_records`` as its callers issue it, held
+    exactly against the plain version on 3 input sets (``field_ors`` against
+    ``plain_field_ors`` too), then timed beside it and beside
+    :func:`library_sort` of the packed key, each kernel's device time and
+    launches from the profiler; returns one kernels-line entry a kernel."""
+    gen = torch.Generator(device=card).manual_seed(SEED + 4)
+    modes: dict = {name: {} for name in SORT_KERNELS}
+    for mode, (bits, hints) in SORT_MODES.items():
+        hi_used = (hints.get("bc_len", 32) > 16, hints.get("umi_len", 32) > 16,
+                   hints.get("index_bits", 64) > 32)
+        sets = [(torch.stack([torch.randint(0, 1 << b, (n,), generator=gen, device=card,
+                                            dtype=torch.int64) for b in bits], dim=1),)
+                for _ in range(3)]
+        widths = SC.key_widths(SC.plain_field_ors(sets[0][0]).tolist(), hi_used)
+        require(widths == bits, f"record sort {mode}: the inputs fill {bits} bits: {widths}")
+        words, live = SC.plan(widths)
+        # an unhinted call reads no ORs on the host: its key and passes are
+        # sized by the hints' bound, and the card skips the passes above W
+        words_launched, launched = SC.plan(widths if not all(hi_used)
+                                           else SC.bound_widths(hi_used))
+
+        def card_sort(t, hints=hints):
+            return S.sort_records(t, **hints)
+
+        def plain_sort(t, hi_used=hi_used):
+            return SC.plain_sort_records(t, hi_used)
+
+        err = 0.0
+        for (t,) in sets:
+            err = max(err, max_abs_err([card_sort(t), SC.field_ors(t)],
+                                       [plain_sort(t), SC.plain_field_ors(t)]))
+            torch.cuda.synchronize()
+        require(err == 0.0, f"record sort {mode}: the kernels equal the plain version at n={n}")
+        wall_ms, plain_ms = time_pair(card_sort, plain_sort, sets, iters=10, plain_iters=3)
+        ors_ms, plain_ors_ms = time_pair(SC.field_ors, SC.plain_field_ors, sets, iters=20,
+                                         plain_iters=5)
+        packed = [tuple(SC.plain_pack(t, hi_used, widths)) for (t,) in sets]
+        library_ms, _ = time_pair(library_sort, library_sort, packed, iters=10, plain_iters=1)
+        del packed
+        prof = kernel_ms_by_name(card_sort, sets, list(SORT_KERNELS))
+        for name, (wrapper, nbytes) in SORT_KERNELS.items():
+            passes = live if name == "pass_kernel" else 1
+            ms, k = prof[name] if prof is not None else (None, None)
+            if prof is not None:
+                want = launched if name == "pass_kernel" else 1
+                require(round(k, 6) == want,
+                        f"record sort {mode}: {name} launched {want} time(s) a sort: {k}")
+            modes[name][mode] = {
+                "bits": list(bits),
+                "key_words": words,
+                "key_words_launched": words_launched,
+                "passes_live": live,
+                "passes_launched": launched,
+                "max_abs_err": err,
+                "ms": ms,
+                "events_ms": ors_ms if wrapper == "field_ors" else None,
+                "plain_ms": plain_ors_ms if wrapper == "field_ors" else plain_ms,
+                "bound_ms": passes * nbytes(words) * n / (LH.PEAK_GBPS * 1e6),
+                "library_ms": None if wrapper == "field_ors" else library_ms,
+                "sort_ms": wall_ms,
+            }
+        note = "not measured" if prof is None else ", ".join(
+            f"{name} {prof[name][0]:.4f} ms x{prof[name][1]:g}" for name in SORT_KERNELS)
+        log(f"timing: record sort {mode} n={n} ({widths} bits, {words} word(s), {live} live "
+            f"of {launched} passes): sort {wall_ms:.4f} ms (events, the OR fetch in it), "
+            f"plain {plain_ms:.4f} ms, library_sort {library_ms:.4f} ms, field_ors "
+            f"{ors_ms:.4f} ms (plain {plain_ors_ms:.4f}); profiler: {note}; exact on 3 sets")
+        del sets
+    out = []
+    for name, (wrapper, _) in SORT_KERNELS.items():
+        top = modes[name]["sort_batch"]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ibu_tpu_torch/csrc/record_sort.cu",
+            "wrapper": f"ibu_tpu_torch/ops/sort_cuda.py::{wrapper}",
+            "replaces": None,  # the reference sorts with lax.sort
+            "launches": None,  # filled in by main: the wrapper's launches a leg
+            "max_abs_err": max(m["max_abs_err"] for m in modes[name].values()),
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": top["library_ms"],
+            "modes": modes[name],
         })
     return out
 
@@ -974,6 +1181,7 @@ def workflow_phase(card, reads: int, workdir: Path) -> dict:
     by_card, by_host = str(workdir / "wf_sorted_card.ibu"), str(workdir / "wf_sorted_native.ibu")
 
     reset_launches()
+    reset_sort_launches()
     wall(f"workflow ingest encode_sorted_file {reads}", lambda: PL.encode_sorted_file(
         raw, bc_rows, umi_rows, index=gene, device=card))
     kstats = wall(f"workflow cells call_cells device {reads}", lambda: PL.call_cells(
@@ -1027,6 +1235,7 @@ def workflow_phase(card, reads: int, workdir: Path) -> dict:
     launches = read_launches()
     log(f"launches on the workflow path: {launches}")
     require(launches["encode_records"] > 0, "encode_records ran on the workflow path")
+    require_sorts("the workflow (phase 10: encode_sorted_file, sort_file_device)", 2)
 
     # count_matrix(engine="device") is not run again here to keep the script
     # under 7 minutes: PERF.md holds its device time and host profile
@@ -1629,6 +1838,7 @@ def cohort_rank(rank: int, world: int, workdir: Path, device: str | None) -> int
     # the entry module's dry run first: it joins the cohort the commands then use
     MH.init_distributed(store, world, rank)
     reset_launches()
+    reset_sort_launches()
     t0 = time.perf_counter()
     try:
         dry = {"rc": 0, "out": json.dumps(dryrun_rank(rank, world, device, DRYRUN_RECORDS)),
@@ -1637,7 +1847,8 @@ def cohort_rank(rank: int, world: int, workdir: Path, device: str | None) -> int
         dry = {"rc": 1, "out": "", "err": f"{type(e).__name__}: {e}"}
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    result["dryrun_rank"] = {**dry, "wall": time.perf_counter() - t0, "launches": read_launches()}
+    result["dryrun_rank"] = {**dry, "wall": time.perf_counter() - t0, "launches": read_launches(),
+                             "sort_launches": read_sort_launches()}
     shares, sizes = [], []
     inner_sort = MS._sample_sort
     inner_encode, inner_decode = PL.encode_batch, PL.decode_batch
@@ -1715,19 +1926,24 @@ def cohort_of_one(card, src: str, want: str, workdir: Path) -> None:
         backend = MH.exchange_backend(card)
         log(f"cohort: world of one: exchange backend {backend}")
         require(backend == "nccl", "a world of one with its own card exchanges over NCCL")
+        # a sample sort in a world of one sorts twice: the dealt block, then the run
+        reset_sort_launches()
         got = wall(f"cohort sharded_sort_records {n} (world 1, NCCL)", lambda: MS.sharded_sort_records(
             records, device=card, bc_len=BC_LEN, umi_len=UMI_LEN, index_bits=32))
+        require_sorts("cohort sharded_sort_records (phase 13, world 1)", 2)
         require(got.tobytes() == wanted.tobytes(), "sharded_sort_records equals native.sort_file")
         del got
-        for key, fn in (
-            ("sort_file_mesh", lambda out: MS.sort_file_mesh(src, out, device=card)),
+        for key, fn, sorts in (
+            ("sort_file_mesh", lambda out: MS.sort_file_mesh(src, out, device=card), 2),
             ("multihost_sort_file mesh",
-             lambda out: MH.multihost_sort_file(src, out, device=card, engine="mesh")),
+             lambda out: MH.multihost_sort_file(src, out, device=card, engine="mesh"), 2),
             ("multihost_sort_file host",
-             lambda out: MH.multihost_sort_file(src, out, device=card, engine="host")),
+             lambda out: MH.multihost_sort_file(src, out, device=card, engine="host"), 0),
         ):
             out = str(workdir / "one.ibu")
+            reset_sort_launches()
             wall(f"cohort {key} {n} (world 1)", lambda: fn(out))
+            require_sorts(f"cohort {key} (phase 13, world 1)", sorts)
             same_file(out, want, f"cohort {key}")
         stats = wall(f"cohort multihost_file_stats {n} (world 1)",
                      lambda: MH.multihost_file_stats(src, device=card))
@@ -1839,6 +2055,7 @@ def cohort_of_two(card, src: str, want: str, wf: dict, workdir: Path) -> dict:
                 f"cohort rank {r}: the dry run merged and sorted {total} records")
         require(got["launches"]["encode_records"] == 1,
                 f"cohort rank {r}: the dry run launched encode_records once")
+        require_sorts(f"the dry run's sample sort (phase 13, rank {r})", 2, got["sort_launches"])
     require(dry[0]["out"] == dry[1]["out"], "the dry run's ranks merged the same state")
 
     singles: dict = {}
@@ -2013,11 +2230,16 @@ def loader_leg(card, src: str) -> None:
         loader = RecordLoader(src, LOADER_BATCH, shuffle="blocks", seed=SEED, shard_index=k,
                               shard_count=2, drop_remainder=False, device=card)
         parts.append(torch.cat(list(loader.epoch(0))))
+    reset_sort_launches()
     union = S.sort_records(torch.cat(parts), check=False)
-    whole = S.sort_records(records_to_tensor(np.asarray(reader.records), card), check=False)
+    records = records_to_tensor(np.asarray(reader.records), card)
+    whole = S.sort_records(records, check=False)
+    require_sorts("the loader's union (phase 13)", 2)
+    require(torch.equal(whole, SC.plain_sort_records(records, (True, True, True))),
+            "the loader's file sorted on the card equals the plain version")
     require(sum(len(p) for p in parts) == n and torch.equal(union, whole),
             "shard_count=2 gives a disjoint, exact union")
-    del parts, union, whole
+    del parts, union, whole, records
 
 
 def cohort_records(cells: str, path: str) -> None:
@@ -2160,13 +2382,17 @@ def main() -> int:
     workdir = ROOT / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     try:
+        reset_sort_launches()
         main_path(card, N_MAIN, N_SORTED, workdir)
         record_launches = {name: KERNELS[name][0].launches
                            for name in ("encode_records", "decode_records")}
         log(f"launches on the record path: {record_launches}")
         require(all(v > 0 for v in record_launches.values()),
                 "both record kernels ran on the record path")
+        require_sorts("the record path (phase 4: encode_sorted_file)", 1)
+        reset_sort_launches()
         launches = matrix_phase(card)
+        require_sorts("the validation matrix (phase 5: device sort, hinted sort)", 2)
         reset_launches()
         histogram_path(card, N_MAIN, workdir)
         log(f"launches on the histogram path (torch ops, no codec kernel): {read_launches()}")
@@ -2174,6 +2400,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = time_kernels(card, N_MAIN, launches)
+    kernels += record_sort_phase(card, N_MAIN)
     kernels += labs_phase(card, N_MAIN)
     kernels += sort_lab_phase(card, N_SORT_LAB)
     # phases 10 and 11 keep their files for phase 12, which reads them
@@ -2202,6 +2429,9 @@ def main() -> int:
                                       for got in cohort_launches["dryrun_rank"]]}
     for entry in kernels:
         name = entry["name"]
+        if name in SORT_KERNELS:
+            wrapper = SORT_KERNELS[name][0]
+            entry["launches"] = {leg: got[wrapper] for leg, got in SORT_LAUNCHES.items()}
         if name == "encode_records":
             entry["entry_launches"] = entry_launches
         if name in ("encode_records", "decode_records"):

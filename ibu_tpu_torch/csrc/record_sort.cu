@@ -1,0 +1,464 @@
+// The record sort for Hopper (sm_90a): a keys-only least-significant-digit
+// radix sort of each record's bit-compacted key, bound through a plain C
+// interface and loaded with ctypes (see ibu_tpu_torch/ops/_build.py and
+// ibu_tpu_torch/ops/sort_cuda.py, which holds the plain torch version).
+//
+// It replaces no TPU kernel: ibu_tpu/ops/stats.py::sort_records_soa sorts
+// with lax.sort, which XLA lowers for the TPU. The port first sorted with
+// torch's stable argsort, one 64-bit key at a time, and gathered the records
+// by the permutation; that moved about 700 B a record for a hinted Drop-seq
+// batch.
+//
+// The key. A record (barcode, umi, index) holds, after the hint masks (the lo
+// 32 bits of a field whose hi word a hint dropped), w_f bits in field f, where
+// w_f is the bit length of the field's OR over the batch. The key
+//   barcode << (w_umi + w_idx) | umi << w_idx | index
+// has W = w_bc + w_umi + w_idx bits: it is lossless, so equal keys are equal
+// records and no index payload is needed, and its unsigned order is the
+// records' (barcode, umi, index) order. It is stored least-significant word
+// first as ceil(W/64) planes of N u64 (plane j holds bits 64j..64j+63 of
+// every key), and the sort makes ceil(W/8) passes of 8-bit digits. A hinted
+// Drop-seq batch (24 + 16 + 16 bits) is one plane and 7 passes.
+//
+// The kernels, in stream order (ibu_record_sort launches 2-4, after
+// ibu_field_ors has launched 1):
+// - field_or_kernel: the OR of each field over the batch, three u64 (reads
+//   24 B a record). The host may read them (the one wait a checked call
+//   already made) and then launches exactly ceil(W/8) passes; where it does
+//   not wait it launches passes up to a bound (32 bits a dropped field, 64
+//   otherwise), and every kernel below works W out from the ORs on the card,
+//   so a pass whose digit lies at or above W returns at once.
+// - pack_kernel: the keys' live planes (24 B read, 8 B a live plane written
+//   a record), and every live pass's digit histogram over the batch, counted
+//   in shared memory and added once per block (the histograms do not depend
+//   on the order, so one read serves every pass).
+// - pass_kernel, one launch a pass (onesweep): a block takes the next tile of
+//   256 * ITEMS keys from an atomic counter, ranks its keys by digit stably
+//   (each warp ranks 32 keys at a time by 8 ballots, carrying per-digit counts
+//   across its runs in shared memory, as csrc/sort_lab.cu's rank_cumsum_kernel
+//   does), publishes its per-digit counts and looks back over the tiles before
+//   it for their prefix (decoupled look-back: a status word a tile and digit
+//   holds a flag, the pass and a count), then puts its keys in digit order in
+//   shared memory and writes each to its bucket's start plus its place. A
+//   pass reads and writes 8 B a key a live plane.
+// - unpack_kernel: the (N, 3) int64 records from the sorted planes (8 B a
+//   live plane read, 24 B written a record), from whichever buffer the last
+//   live pass wrote, found from W on the card. A block rebuilds 256 records
+//   into shared memory and stores them as 768 contiguous words: a thread's
+//   own three 8-byte stores at a 24-byte stride took 0.078 ms at 2^22 records
+//   on an H100, the staged stores 0.054 ms.
+//
+// What bounds it: device-memory bytes for the OR-reduce, the pack and the
+// rebuild (63-77% of their bytes at 3350 GB/s on an H100); the passes run at
+// about a third of their 16 B a key. A pass's time went mostly to the rank
+// (labs/record_sort_ablation.cu: loads, tile counts and scans alone take a
+// third of it), and tile size, block size, occupancy and counts published
+// before the rank moved it by a few percent: the next gain is a rank without
+// the warp's serial chain of counter updates.
+//
+// Every kernel launches on the caller's stream, allocates nothing and never
+// synchronises: the wrapper allocates the planes and the status words in one
+// scratch buffer (ibu_record_sort_scratch_bytes), which ibu_record_sort
+// zeroes where it must with cudaMemsetAsync. Each C entry point returns the
+// first launch error, or cudaErrorInvalidValue for arguments out of range.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kDigits = 256;
+constexpr int kMaxWords = 3;
+constexpr int kMaxPasses = 8 * kMaxWords;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// A status word: flag (bits 62-63: 1 the tile's own count, 2 the inclusive
+// prefix), the pass + 1 (bits 56-61), the count (bits 0-55). Zeroed words and
+// words of the pass before never match the pass's tag.
+constexpr uint64_t kCountMask = (uint64_t(1) << 56) - 1;
+constexpr uint64_t kTagMask = uint64_t(63) << 56;
+constexpr uint64_t kAggregate = uint64_t(1) << 62;
+constexpr uint64_t kPrefix = uint64_t(2) << 62;
+
+struct Masks {
+  uint64_t m[3];  // barcode, umi, index
+};
+
+// Each field's width and place in the key, and the key's width.
+struct Layout {
+  int width[3];
+  int offset[3];
+  int bits;
+};
+
+__device__ __forceinline__ int bit_length(uint64_t v) { return v ? 64 - __clzll(v) : 0; }
+
+__device__ __forceinline__ Layout key_layout(const unsigned long long* ors, const Masks& masks) {
+  Layout l;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) l.width[f] = bit_length(ors[f] & masks.m[f]);
+  l.offset[2] = 0;
+  l.offset[1] = l.width[2];
+  l.offset[0] = l.width[2] + l.width[1];
+  l.bits = l.offset[0] + l.width[0];
+  return l;
+}
+
+// Or ``v`` (no bits at or above ``width``) into the key at bit ``offset``.
+template <int NW>
+__device__ __forceinline__ void put(uint64_t (&k)[NW], uint64_t v, int offset, int width) {
+  if (width == 0) return;
+  const int q = offset >> 6, s = offset & 63;
+  const bool spills = s != 0 && s + width > 64;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    if (j == q) k[j] |= v << s;
+    if (j == q + 1 && spills) k[j] |= v >> (64 - s);
+  }
+}
+
+// The ``width`` bits of the key at bit ``offset``.
+template <int NW>
+__device__ __forceinline__ uint64_t get(const uint64_t (&k)[NW], int offset, int width) {
+  if (width == 0) return 0;
+  const int q = offset >> 6, s = offset & 63;
+  const bool spills = s != 0 && s + width > 64;
+  uint64_t v = 0;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    if (j == q) v |= k[j] >> s;
+    if (j == q + 1 && spills) v |= k[j] << (64 - s);
+  }
+  return width == 64 ? v : v & ((uint64_t(1) << width) - 1);
+}
+
+template <int NW>
+__device__ __forceinline__ int digit_of(const uint64_t (&k)[NW], int pass) {
+  const int j = pass >> 3;
+  uint64_t w = k[0];
+#pragma unroll
+  for (int i = 1; i < NW; ++i) {
+    if (j == i) w = k[i];
+  }
+  return int((w >> ((pass & 7) * 8)) & 0xFF);
+}
+
+__device__ __forceinline__ uint64_t or_warp(uint64_t v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v |= __shfl_xor_sync(kFull, v, s);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+field_or_kernel(const uint64_t* __restrict__ rec, int64_t n, unsigned long long* __restrict__ ors) {
+  __shared__ uint64_t part[3][kWarps];
+  uint64_t acc[3] = {0, 0, 0};
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  for (int64_t r = int64_t(blockIdx.x) * kThreads + threadIdx.x; r < n; r += stride) {
+#pragma unroll
+    for (int f = 0; f < 3; ++f) acc[f] |= rec[3 * r + f];
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    const uint64_t v = or_warp(acc[f]);
+    if (lane == 0) part[f][warp] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    uint64_t v = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v |= part[threadIdx.x][w];
+    if (v) atomicOr(&ors[threadIdx.x], (unsigned long long)v);
+  }
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const uint64_t* __restrict__ rec, int64_t n, const unsigned long long* __restrict__ ors,
+            Masks masks, uint64_t* __restrict__ keys, unsigned* __restrict__ hist) {
+  __shared__ unsigned counts[kMaxPasses * kDigits];
+  const Layout l = key_layout(ors, masks);
+  const int passes = (l.bits + 7) >> 3;
+  const int live = (l.bits + 63) >> 6;
+  for (int c = threadIdx.x; c < passes * kDigits; c += kThreads) counts[c] = 0;
+  __syncthreads();
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  for (int64_t r = int64_t(blockIdx.x) * kThreads + threadIdx.x; r < n; r += stride) {
+    uint64_t k[NW];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) k[j] = 0;
+#pragma unroll
+    for (int f = 0; f < 3; ++f) put(k, rec[3 * r + f] & masks.m[f], l.offset[f], l.width[f]);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (j < live) keys[j * n + r] = k[j];
+    }
+#pragma unroll
+    for (int p = 0; p < 8 * NW; ++p) {
+      if (p < passes) atomicAdd(&counts[p * kDigits + digit_of(k, p)], 1u);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < passes * kDigits; c += kThreads) {
+    if (counts[c]) atomicAdd(&hist[c], counts[c]);
+  }
+}
+
+// The lanes of the warp whose digit equals d (8 ballots, one per bit).
+__device__ __forceinline__ unsigned digit_peers(int d) {
+  unsigned peers = kFull;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const bool bit = (d >> b) & 1;
+    const unsigned set = __ballot_sync(kFull, bit);
+    peers &= bit ? set : ~set;
+  }
+  return peers;
+}
+
+// Exclusive prefix of ``v`` over the block's threads in order; ``scratch``
+// holds kWarps values. Every thread of the block calls it.
+__device__ __forceinline__ long long exclusive_scan(long long v, long long* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long x = v;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const long long y = __shfl_up_sync(kFull, x, s);
+    if (lane >= s) x += y;
+  }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  long long before = 0;
+  for (int w = 0; w < warp; ++w) before += scratch[w];
+  __syncthreads();
+  return before + x - v;
+}
+
+template <int NW, int ITEMS>
+__global__ void __launch_bounds__(kThreads)
+pass_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n,
+            const unsigned long long* __restrict__ ors, Masks masks, int pass,
+            const unsigned* __restrict__ hist, unsigned long long* status, unsigned* counter) {
+  constexpr int kTileKeys = kThreads * ITEMS;
+  __shared__ unsigned warp_counts[kWarps][kDigits];
+  __shared__ unsigned local_start[kDigits];
+  __shared__ long long global_base[kDigits];
+  __shared__ long long scan_scratch[kWarps];
+  __shared__ unsigned tile_slot;
+  __shared__ uint64_t exchange[kTileKeys];
+  __shared__ uint8_t sorted_digit[kTileKeys];
+
+  const Layout l = key_layout(ors, masks);
+  if (8 * pass >= l.bits) return;  // the digit lies above the key: nothing to do
+  const int live = (l.bits + 63) >> 6;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) tile_slot = atomicAdd(counter + pass, 1u);
+  for (int c = tid; c < kWarps * kDigits; c += kThreads) (&warp_counts[0][0])[c] = 0;
+  __syncthreads();
+  const int64_t tile = tile_slot;
+  const int64_t base = tile * kTileKeys;
+  const int64_t first = base + warp * (ITEMS * 32) + lane;
+
+  uint64_t key[ITEMS][NW];
+  int digit[ITEMS];
+  unsigned place[ITEMS];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int64_t i = first + k * 32;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) key[k][j] = (i < n && j < live) ? in[j * n + i] : 0;
+    digit[k] = digit_of(key[k], pass);
+  }
+
+  // rank: each key's count among the earlier keys of its warp with its digit
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const bool valid = first + k * 32 < n;
+    const unsigned peers = digit_peers(digit[k]) & __ballot_sync(kFull, valid);
+    const unsigned before = __popc(peers & below);
+    unsigned prior = 0;
+    if (valid) prior = warp_counts[warp][digit[k]];
+    place[k] = prior + before;
+    __syncwarp();
+    if (valid && before == 0) warp_counts[warp][digit[k]] = prior + __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // thread tid is digit tid from here: the warps' offsets and the tile's count
+  unsigned count = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const unsigned c = warp_counts[w][tid];
+    warp_counts[w][tid] = count;
+    count += c;
+  }
+  const uint64_t tag = uint64_t(pass + 1) << 56;
+  volatile unsigned long long* mine = status + tile * kDigits + tid;
+  long long prefix = 0;  // keys of this digit in the tiles before this one
+  if (tile == 0) {
+    *mine = kPrefix | tag | count;
+  } else {
+    *mine = kAggregate | tag | count;
+    for (int64_t t = tile - 1, spins = 0;;) {
+      const uint64_t s = static_cast<volatile unsigned long long*>(status)[t * kDigits + tid];
+      if ((s & kTagMask) != tag || (s >> 62) == 0) {  // not published yet
+        // the tile before was taken by a running block, so it publishes in
+        // microseconds; a wait of seconds is a fault, reported as one
+        if (++spins > (int64_t(1) << 26)) __trap();
+        continue;
+      }
+      prefix += static_cast<long long>(s & kCountMask);
+      if ((s >> 62) == 2) break;
+      --t;
+    }
+    *mine = kPrefix | tag | uint64_t(prefix + count);
+  }
+  const long long start = exclusive_scan(count, scan_scratch);
+  const long long bucket = exclusive_scan(hist[pass * kDigits + tid], scan_scratch);
+  local_start[tid] = unsigned(start);
+  global_base[tid] = bucket + prefix - start;
+  __syncthreads();
+
+  // the tile in digit order, through shared memory, one plane at a time
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    place[k] += local_start[digit[k]] + warp_counts[warp][digit[k]];
+    if (first + k * 32 < n) sorted_digit[place[k]] = uint8_t(digit[k]);
+  }
+  const int tile_keys = int(n - base < kTileKeys ? n - base : kTileKeys);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    if (j >= live) break;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      if (first + k * 32 < n) exchange[place[k]] = key[k][j];
+    }
+    __syncthreads();
+    for (int i = tid; i < tile_keys; i += kThreads) {
+      out[j * n + global_base[sorted_digit[i]] + i] = exchange[i];
+    }
+    __syncthreads();
+  }
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+unpack_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b, int64_t n,
+              const unsigned long long* __restrict__ ors, Masks masks,
+              uint64_t* __restrict__ out) {
+  __shared__ uint64_t rows[3 * kThreads];
+  const Layout l = key_layout(ors, masks);
+  const int live = (l.bits + 63) >> 6;
+  // pass p reads buffer p % 2 and writes the other
+  const uint64_t* src = (((l.bits + 7) >> 3) & 1) ? b : a;
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  for (int64_t chunk = int64_t(blockIdx.x) * kThreads; chunk < n; chunk += stride) {
+    const int64_t r = chunk + threadIdx.x;
+    if (r < n) {
+      uint64_t k[NW];
+#pragma unroll
+      for (int j = 0; j < NW; ++j) k[j] = j < live ? src[j * n + r] : 0;
+#pragma unroll
+      for (int f = 0; f < 3; ++f) rows[3 * threadIdx.x + f] = get(k, l.offset[f], l.width[f]);
+    }
+    __syncthreads();
+    // the block's records are contiguous: store them as contiguous words
+    const int words = 3 * int(n - chunk < kThreads ? n - chunk : kThreads);
+    for (int j = threadIdx.x; j < words; j += kThreads) out[3 * chunk + j] = rows[j];
+    __syncthreads();
+  }
+}
+
+// Keys a thread ranks in a pass, by key words: registers bound the wider keys.
+constexpr int items_for(int words) { return words == 1 ? 16 : words == 2 ? 12 : 8; }
+constexpr int64_t kHistBytes = int64_t(kMaxPasses) * kDigits * 4;
+constexpr int64_t kCounterBytes = 256;  // kMaxPasses u32, padded
+
+int64_t tiles_for(int64_t n, int words) {
+  const int64_t tile = int64_t(kThreads) * items_for(words);
+  return (n + tile - 1) / tile;
+}
+
+// hist | counters | status (zeroed) | keys a | keys b
+int64_t zeroed_bytes(int64_t n, int words) {
+  return kHistBytes + kCounterBytes + tiles_for(n, words) * kDigits * 8;
+}
+
+int grid_for(int64_t n, int per_sm) {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  const int64_t cap = int64_t(sms) * per_sm;
+  return int(blocks < cap ? blocks : cap);
+}
+
+template <int NW>
+int run_sort(const uint64_t* rec, int64_t n, const unsigned long long* ors, Masks masks,
+             int passes, char* scratch, uint64_t* out, cudaStream_t stream) {
+  constexpr int kItems = items_for(NW);
+  unsigned* hist = reinterpret_cast<unsigned*>(scratch);
+  unsigned* counter = reinterpret_cast<unsigned*>(scratch + kHistBytes);
+  unsigned long long* status =
+      reinterpret_cast<unsigned long long*>(scratch + kHistBytes + kCounterBytes);
+  uint64_t* keys[2];
+  keys[0] = reinterpret_cast<uint64_t*>(scratch + zeroed_bytes(n, NW));
+  keys[1] = keys[0] + int64_t(NW) * n;
+  cudaError_t rc = cudaMemsetAsync(scratch, 0, size_t(zeroed_bytes(n, NW)), stream);
+  if (rc != cudaSuccess) return int(rc);
+  pack_kernel<NW><<<grid_for(n, 4), kThreads, 0, stream>>>(rec, n, ors, masks, keys[0], hist);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return int(rc);
+  const int64_t tiles = tiles_for(n, NW);
+  for (int p = 0; p < passes; ++p) {
+    pass_kernel<NW, kItems><<<unsigned(tiles), kThreads, 0, stream>>>(
+        keys[p & 1], keys[(p + 1) & 1], n, ors, masks, p, hist, status, counter);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return int(rc);
+  }
+  unpack_kernel<NW><<<grid_for(n, 8), kThreads, 0, stream>>>(keys[0], keys[1], n, ors, masks, out);
+  return int(cudaGetLastError());
+}
+
+bool args_ok(int64_t n, int words, int passes) {
+  return n > 0 && n < (int64_t(1) << 31) && words >= 1 && words <= kMaxWords && passes >= 0 &&
+         passes <= 8 * words && tiles_for(n, words) <= INT32_MAX;
+}
+
+}  // namespace
+
+extern "C" int64_t ibu_record_sort_scratch_bytes(int64_t n, int words) {
+  if (!args_ok(n, words, 0)) return -1;
+  return zeroed_bytes(n, words) + 2 * int64_t(words) * n * 8;
+}
+
+extern "C" int ibu_field_ors(const void* records, int64_t n, void* ors, void* stream) {
+  if (n <= 0) return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc = cudaMemsetAsync(ors, 0, 3 * sizeof(uint64_t), s);
+  if (rc != cudaSuccess) return int(rc);
+  field_or_kernel<<<grid_for(n, 8), kThreads, 0, s>>>(
+      static_cast<const uint64_t*>(records), n, static_cast<unsigned long long*>(ors));
+  return int(cudaGetLastError());
+}
+
+extern "C" int ibu_record_sort(const void* records, int64_t n, const void* ors, uint64_t mask_bc,
+                               uint64_t mask_umi, uint64_t mask_index, int words, int passes,
+                               void* scratch, void* out, void* stream) {
+  if (!args_ok(n, words, passes)) return int(cudaErrorInvalidValue);
+  const Masks masks = {{mask_bc, mask_umi, mask_index}};
+  const auto* rec = static_cast<const uint64_t*>(records);
+  const auto* o = static_cast<const unsigned long long*>(ors);
+  char* sc = static_cast<char*>(scratch);
+  auto* dst = static_cast<uint64_t*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (words) {
+    case 1: return run_sort<1>(rec, n, o, masks, passes, sc, dst, s);
+    case 2: return run_sort<2>(rec, n, o, masks, passes, sc, dst, s);
+    default: return run_sort<3>(rec, n, o, masks, passes, sc, dst, s);
+  }
+}

@@ -5,12 +5,13 @@
 
 The port's counterpart of ``tools/sort_lab.py``, which times ``lax.sort`` at
 6, 4, 3 and 1 operands. Here the record sort is
-:func:`ibu_tpu_torch.ops.stats.sort_records` (stable argsort passes over
-sign-flipped int64 keys, neighbouring narrow keys packed into one):
+:func:`ibu_tpu_torch.ops.stats.sort_records` (a radix sort of each record's
+bit-compacted key, :mod:`ibu_tpu_torch.ops.sort_cuda`):
 
-- ``unhinted``: three 64-bit keys, three passes;
-- ``hinted``: ``bc_len=16, umi_len=16, index_bits=32, check=False``, the
-  barcode and UMI packed into one key, two passes;
+- ``unhinted``: passes launched up to a 192-bit key, those above the data's
+  key width skipped on the card;
+- ``hinted``: ``bc_len=16, umi_len=16, index_bits=32, check=False``, passes
+  launched up to a 96-bit key, skipped alike;
 - ``torch.sort 1-key``: ``torch.sort`` of the barcode column alone, the
   floor of any comparison sort of these records.
 

@@ -1,5 +1,5 @@
-"""Build and load the CUDA library (``csrc/codec.cu``, ``csrc/codec_lab.cu``
-and ``csrc/sort_lab.cu``).
+"""Build and load the CUDA library (``csrc/codec.cu``, ``csrc/codec_lab.cu``,
+``csrc/record_sort.cu`` and ``csrc/sort_lab.cu``).
 
 ``nvcc`` compiles the sources of this checkout into a shared library with a
 plain C interface, which :func:`load` opens with ``ctypes``: one ``nvcc`` per
@@ -107,6 +107,7 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     ptr, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
+    u64 = ctypes.c_uint64
     lib.ibu_encode_records.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, u32, ptr]
     lib.ibu_encode_records.restype = i32
     lib.ibu_decode_records.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, u32, ptr]
@@ -127,6 +128,14 @@ def load() -> ctypes.CDLL:
     lib.ibu_lab_rank_cumsum.restype = i32
     lib.ibu_lab_dynamic_store.argtypes = [ptr, ptr, ptr, i64, ptr]
     lib.ibu_lab_dynamic_store.restype = i32
+    # records, n, ors, stream
+    lib.ibu_field_ors.argtypes = [ptr, i64, ptr, ptr]
+    lib.ibu_field_ors.restype = i32
+    # records, n, ors, three masks, words, passes, scratch, out, stream
+    lib.ibu_record_sort.argtypes = [ptr, i64, ptr, u64, u64, u64, i32, i32, ptr, ptr, ptr]
+    lib.ibu_record_sort.restype = i32
+    lib.ibu_record_sort_scratch_bytes.argtypes = [i64, i32]
+    lib.ibu_record_sort_scratch_bytes.restype = i64
     lib.ibu_cuda_error_string.argtypes = [i32]
     lib.ibu_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -3,8 +3,9 @@ the barcode-grouped aggregations.
 
 Counterpart of :mod:`ibu_tpu.ops.stats`. The JAX package sums through a
 u16-limb pyramid because the TPU is 32-bit; here an exact mod-2^64 field sum
-is a wrapping int64 sum. The record sort is stable least-significant-first
-argsort passes over sign-flipped keys, in torch ops.
+is a wrapping int64 sum. The record sort sorts each record's bit-compacted
+key (:mod:`ibu_tpu_torch.ops.sort_cuda`): a radix sort written for the card,
+a plain torch version on the CPU.
 
 The aggregations (:func:`barcode_histogram`, :func:`molecule_counts`,
 :func:`pair_molecule_counts`) keep the JAX package's static-size contract:
@@ -21,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ibu_tpu_torch.ops import sort_cuda
 from ibu_tpu_torch.ops.u64 import SIGN_BIT, U64_MASK, flip_sign
 from ibu_tpu_torch.utils import trace
 
@@ -78,11 +80,15 @@ def _hinted(col: torch.Tensor, hi_used: bool) -> tuple[torch.Tensor, int]:
     return (col, 64) if hi_used else (col & _LO32, 32)
 
 
-def _sort_impl(records: torch.Tensor, hi_used: tuple[bool, bool, bool]) -> torch.Tensor:
+def _sort_impl(records: torch.Tensor, hi_used: sort_cuda.Hints) -> torch.Tensor:
     """Sort by (barcode, umi, index) in unsigned order; as in the JAX
-    package, hi words dropped by a hint come back as zeros."""
-    cols, widths = zip(*(_hinted(records[:, f], hi_used[f]) for f in range(3)))
-    return torch.stack(cols, dim=1)[_lex_order(list(cols), list(widths))]
+    package, hi words dropped by a hint come back as zeros. ``hi_used`` is
+    :func:`sort_records`' :class:`~ibu_tpu_torch.ops.sort_cuda.Hints`, which
+    carries the batch's field ORs where the check read them; a plain tuple
+    of three flags carries none."""
+    if not isinstance(hi_used, sort_cuda.Hints):
+        hi_used = sort_cuda.Hints(hi_used)
+    return sort_cuda.sort_records(records.contiguous(), hi_used)
 
 
 def sort_records(
@@ -101,28 +107,38 @@ def sort_records(
     verifies that on the device and raises ``ValueError`` on a violated hint;
     with ``check=False`` the hint is trusted and the dropped bits come back as
     zeros.
+
+    The check reads the batch's field ORs on the host, and the sort then
+    makes exactly the passes the data's widths need; without it nothing
+    waits on the card, and the card skips the passes the data leaves empty.
     """
     hi_used = (
         bc_len is None or bc_len > 16,
         umi_len is None or umi_len > 16,
         index_bits is None or index_bits > 32,
     )
+    records = records.contiguous()  # a view is sorted as its rows; no copy otherwise
+    hints = sort_cuda.Hints(hi_used)
     if check and not all(hi_used):
-        dropped = [f for f in range(3) if not hi_used[f]]
-        flags = ((records[:, dropped] >> 32) != 0).any(dim=0)
-        if flags.is_cuda:
+        ors = sort_cuda.field_ors(records)
+        if ors.is_cuda:
             with trace.span("d2h.wait"):
-                trace.count("d2h_bytes", flags.numel() * flags.element_size())
-                nz = flags.tolist()
+                trace.count("d2h_bytes", ors.numel() * ors.element_size())
+                seen = ors.tolist()
         else:
-            nz = flags.tolist()
-        if any(nz):
-            bad = [_FIELDS[f] for f, z in zip(dropped, nz) if z]
+            seen = ors.tolist()
+        bad = [_FIELDS[f] for f in range(3) if not hi_used[f] and seen[f] >> 32]
+        if bad:
             raise ValueError(
                 f"sort hint violated: {', '.join(bad)} hi word(s) contain "
                 "nonzero bits; fix the bc_len/umi_len/index_bits hints"
             )
-    return _sort_impl(records, hi_used)
+        hints = sort_cuda.Hints(hi_used, ors, sort_cuda.key_widths(seen, hi_used))
+    if records.is_cuda:
+        widths = sort_cuda.launch_widths(hints)
+        trace.count("sort_key_bits", sum(widths))
+        trace.count("sort_passes", sort_cuda.plan(widths)[1])
+    return _sort_impl(records, hints)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,14 @@
+"""The radix passes the program's record sort launched (its ``sort_passes``
+counter) per traced job. Nothing where the program counts no such pass
+(untraced, on the CPU, or a program whose sort makes none)."""
+
+
+def read(run):
+    try:
+        from ibu_tpu_torch.utils.trace import session
+    except ImportError:
+        return None
+    spans = [] if run["trace"] is None else session()
+    passes = sum(s.counters.get("sort_passes", 0) for s in spans)
+    jobs = len(run["window"]["job_s"])
+    return passes / jobs if passes > 0 and jobs else None

@@ -1,5 +1,5 @@
-"""The CUDA codec kernels, the codec labs' and the sort lab's kernels against
-their plain torch versions, and the histogram engines and validation matrix,
+"""The CUDA codec kernels, the record sort, the codec labs' and the sort lab's
+kernels against their plain torch versions, and the histogram engines and validation matrix,
 on the card.
 
 Every test here is marked ``cuda`` and skips where no CUDA card is present.
@@ -22,8 +22,11 @@ from ibu_tpu_torch.labs import kernel_lab, sol_lab, sort_lab
 from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as TC
 from ibu_tpu_torch.ops import codec_cuda as K
+from ibu_tpu_torch.ops import sort_cuda as SC
 from ibu_tpu_torch.ops import stats as TS
+from ibu_tpu_torch.ops.u64 import records_to_tensor
 from ibu_tpu_torch.parallel import device as TD
+from ibu_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -832,3 +835,141 @@ def test_cohort_commands_on_two_ranks_of_one_card(card, tmp_path):
         assert (d / name).read_bytes() == Path(single(name)).read_bytes(), name
     shards = b"".join((d / f"reads.part{r}.fastq").read_bytes() for r in range(2))
     assert shards == (tmp_path / "reads.fastq").read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# the record sort by compacted keys (ibu_tpu_torch/ops/sort_cuda.py,
+# csrc/record_sort.cu)
+# ---------------------------------------------------------------------------
+
+
+def width_records(n, seed, bits, dup=False):
+    """Seeded records whose fields hold exactly ``bits`` bits (one row with
+    bit b - 1 set; bit 63 where b = 64); ``dup`` repeats 5 rows' values."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for b in bits:
+        vals = rng.integers(0, 1 << b, size=n, dtype=np.uint64) if b else np.zeros(n, np.uint64)
+        if dup:
+            vals = vals[rng.integers(0, min(n, 5), size=n)]
+        if b and n:
+            vals[rng.integers(0, n)] |= np.uint64(1 << (b - 1))
+        cols.append(vals)
+    return make_records(*cols)
+
+
+def every_second_row(records):
+    """``records`` to be sorted as the strided view ``t[::2]`` of their tensor."""
+    return records, 2
+
+
+def case_tensor(made, device):
+    """``(numpy records, the tensor sort_records gets)`` of a case: a
+    ``(records, step)`` pair gives the row view ``t[::step]``."""
+    records, step = made if isinstance(made, tuple) else (made, 1)
+    return records[::step], records_to_tensor(records, device)[::step]
+
+
+DROPSEQ_HINTS = {"bc_len": 12, "umi_len": 8, "index_bits": 32}
+#: name → (records, hints): key widths 0 ... 192 around the word edges, bit
+#: 63 in each field, ties, tiny batches, a partial last tile, set bits
+#: beyond the hints (sorted unchecked, where they come back as zeros) and a
+#: strided row view
+KEY_CASES = {
+    "W0": (lambda: width_records(3000, 1, (0, 0, 0)), {}),
+    "W56": (lambda: width_records(N, 2, (24, 16, 16), dup=True), DROPSEQ_HINTS),
+    "W63": (lambda: width_records(N, 3, (24, 16, 23)), DROPSEQ_HINTS),
+    "W64": (lambda: width_records(N, 4, (32, 16, 16)), DROPSEQ_HINTS),
+    "W65": (lambda: width_records(N, 5, (33, 16, 16)), {"umi_len": 8, "index_bits": 32}),
+    "W128": (lambda: width_records(N, 6, (64, 32, 32)), {"umi_len": 16, "index_bits": 32}),
+    "W129": (lambda: width_records(N, 7, (64, 33, 32)), {"index_bits": 32}),
+    "W192": (lambda: width_records(N, 8, (64, 64, 64), dup=True), {}),
+    "bit63_barcode": (lambda: width_records(N, 9, (64, 5, 5)), {}),
+    "bit63_umi": (lambda: width_records(N, 10, (5, 64, 5)), {}),
+    "bit63_index": (lambda: width_records(N, 11, (5, 5, 64)), {}),
+    "equal_rows": (lambda: make_records(*(np.full(9999, v, np.uint64) for v in (5, 1 << 63, 9))),
+                   {}),
+    "n0": (lambda: width_records(0, 12, (24, 16, 16)), DROPSEQ_HINTS),
+    "n1": (lambda: width_records(1, 13, (24, 16, 16)), DROPSEQ_HINTS),
+    "n2": (lambda: make_records(*(np.array(v, np.uint64) for v in ([7, 3], [1, 2], [0, 0]))),
+           {}),
+    "hi_bits_beyond_hints": (lambda: width_records(N, 14, (64, 64, 64), dup=True),
+                             {**DROPSEQ_HINTS, "check": False}),
+    "strided_view": (lambda: every_second_row(width_records(2 * N, 15, (24, 16, 16))),
+                     DROPSEQ_HINTS),
+}
+
+
+def hi_used_of(hints):
+    return (hints.get("bc_len", 32) > 16, hints.get("umi_len", 32) > 16,
+            hints.get("index_bits", 64) > 32)
+
+
+def assert_record_sort_matches_plain(made, hints):
+    """Every route through the kernels (checked: exact passes; unchecked:
+    passes to the hints' bound, skipped on the card) against the plain
+    version, byte for byte; ``made`` is records or a case's ``(records,
+    step)`` pair."""
+    _, t = case_tensor(made, torch.device("cuda"))
+    hi_used = hi_used_of(hints)
+    want = SC.plain_sort_records(t.cpu(), hi_used)
+    routes = [{**hints, "check": False}, {k: v for k, v in hints.items() if k != "check"}]
+    if hints.get("check", True) is False:
+        routes = routes[:1]
+    for route in routes:
+        got = TS.sort_records(t, **route)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and torch.equal(got.cpu(), want), route
+    assert torch.equal(SC.field_ors(t.contiguous()).cpu(), SC.plain_field_ors(t.cpu()))
+
+
+@pytest.mark.parametrize("case", list(KEY_CASES))
+def test_record_sort_kernels_match_plain(card, case):
+    make, hints = KEY_CASES[case]
+    assert_record_sort_matches_plain(make(), hints)
+
+
+def dropseq_batch(n, seed):
+    """``n`` reads of the benchmark's Drop-seq sample, as records."""
+    import json
+    from pathlib import Path
+
+    from portbench.traffic import generate
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "portbench" / "configs" / "dropseq.json").read_text())
+    return generate.structured(generate.sample(cfg, n, seed))
+
+
+def test_record_sort_kernels_on_a_dropseq_batch(card):
+    records = dropseq_batch(1 << 22, 2**31 + 77)
+    assert_record_sort_matches_plain(records, DROPSEQ_HINTS)
+    assert_record_sort_matches_plain(records, {})
+
+
+def test_sort_batch_launches_the_record_sort_and_counts_its_passes(card, monkeypatch):
+    monkeypatch.setattr(SC.sort_records, "launches", 0)
+    records = dropseq_batch(1 << 16, 5)
+    trace.session()  # ends any earlier session
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = TPL.sort_batch(records, 12, 8, index_bits=32, device=card)
+    spans = trace.session()
+    assert SC.sort_records.launches == 1
+    assert got.tobytes() == np.sort(records, order=("barcode", "umi", "index")).tobytes()
+    counted = {k: sum(s.counters.get(k, 0) for s in spans) for k in ("sort_passes", "sort_key_bits")}
+    assert counted == {"sort_passes": 7, "sort_key_bits": 56}
+
+
+def test_record_sort_adds_no_wait(card):
+    """An unchecked and an unhinted sort never wait on the card."""
+    t = records_to_tensor(dropseq_batch(1 << 18, 6), card)
+    want = SC.plain_sort_records(t.cpu(), (False, False, False))
+    TS.sort_records(t, **DROPSEQ_HINTS, check=False)  # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        unchecked = TS.sort_records(t, **DROPSEQ_HINTS, check=False)
+        unhinted = TS.sort_records(t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(unchecked.cpu(), want) and torch.equal(unhinted.cpu(), want)

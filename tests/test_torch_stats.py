@@ -19,6 +19,7 @@ from ibu_tpu.constructs.record import RECORD_DTYPE, make_records
 from ibu_tpu.ops import stats as JS
 from ibu_tpu.ops.u64 import records_from_soa, soa_from_records
 from ibu_tpu.parallel import device as JD
+from ibu_tpu_torch.ops import sort_cuda as SC
 from ibu_tpu_torch.ops import stats as TS
 from ibu_tpu_torch.ops.u64 import (
     jax_soa_from_records,
@@ -88,6 +89,8 @@ def test_wrapping_sum_is_mod_2_64():
     assert got == ((n * ((1 << 64) - 1)) & ((1 << 64) - 1),) * 3
 
 
+#: the Drop-seq chemistry's hints: 12-base barcodes, 8-base UMIs, 32-bit index
+DROPSEQ_HINTS = {"bc_len": 12, "umi_len": 8, "index_bits": 32}
 SORT_HINTS = [
     {},
     {"bc_len": 16, "umi_len": 12},
@@ -127,7 +130,7 @@ def test_sort_unsigned_order_at_bit63():
 
 @pytest.mark.parametrize(
     "hints", [{"bc_len": 16, "umi_len": 12}, {"umi_len": 12, "index_bits": 32},
-              {"index_bits": 32}]
+              {"index_bits": 32}, DROPSEQ_HINTS]
 )
 def test_sort_hint_violation_message_matches(hints):
     """``umax.ibu``'s all-ones record breaks its own bc16/umi12 header."""
@@ -148,6 +151,118 @@ def test_unchecked_hint_zeroes_dropped_words_like_jax():
     )
     got = records_from_tensor(TS.sort_records(records_to_tensor(records, CPU), **hints))
     assert got.tobytes() == want.tobytes()
+
+
+def width_records(n, seed, bits, dup=False):
+    """Seeded records whose fields hold exactly ``bits`` bits: values below
+    2^b, one row with bit b - 1 set (bit 63 where b = 64)."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for b in bits:
+        vals = rng.integers(0, 1 << b, size=n, dtype=np.uint64) if b else np.zeros(n, np.uint64)
+        if dup:
+            vals = vals[rng.integers(0, min(n, 5), size=n)]
+        if b and n:
+            vals[rng.integers(0, n)] |= np.uint64(1 << (b - 1))
+        cols.append(vals)
+    return make_records(*cols)
+
+
+def every_second_row(records):
+    """``records`` to be sorted as the strided view ``t[::2]`` of their tensor."""
+    return records, 2
+
+
+def case_tensor(made, device):
+    """``(numpy records, the tensor sort_records gets)`` of a case: a
+    ``(records, step)`` pair gives the row view ``t[::step]``."""
+    records, step = made if isinstance(made, tuple) else (made, 1)
+    return records[::step], records_to_tensor(records, device)[::step]
+
+
+#: name → (records, hints, key bits W); W = 0 ... 192 around the word edges,
+#: bit 63 in each field, ties, tiny batches, a hint that drops set bits, and
+#: a strided row view
+KEY_CASES = {
+    "W0": (lambda: width_records(300, 1, (0, 0, 0)), {}, 0),
+    "W56": (lambda: width_records(3000, 2, (24, 16, 16), dup=True), DROPSEQ_HINTS, 56),
+    "W63": (lambda: width_records(3000, 3, (24, 16, 23)), DROPSEQ_HINTS, 63),
+    "W64": (lambda: width_records(3000, 4, (32, 16, 16)), DROPSEQ_HINTS, 64),
+    "W65": (lambda: width_records(3000, 5, (33, 16, 16)), {"umi_len": 8, "index_bits": 32}, 65),
+    "W128": (lambda: width_records(3000, 6, (64, 32, 32)), {"umi_len": 16, "index_bits": 32}, 128),
+    "W129": (lambda: width_records(3000, 7, (64, 33, 32)), {"index_bits": 32}, 129),
+    "W192": (lambda: width_records(3000, 8, (64, 64, 64), dup=True), {}, 192),
+    "bit63_barcode": (lambda: width_records(999, 9, (64, 5, 5)), {}, 74),
+    "bit63_umi": (lambda: width_records(999, 10, (5, 64, 5)), {}, 74),
+    "bit63_index": (lambda: width_records(999, 11, (5, 5, 64)), {}, 74),
+    "equal_rows": (lambda: make_records(*(np.full(257, v, np.uint64) for v in (5, 1 << 63, 9))),
+                   {}, 3 + 64 + 4),
+    "n0": (lambda: width_records(0, 12, (24, 16, 16)), DROPSEQ_HINTS, 0),
+    "n1": (lambda: width_records(1, 13, (24, 16, 16)), DROPSEQ_HINTS, 56),
+    "n2": (lambda: make_records(*(np.array(v, np.uint64) for v in ([7, 3], [1, 2], [0, 0]))),
+           {}, 3 + 2 + 0),
+    "unchecked_hi_bits": (lambda: width_records(2000, 14, (64, 64, 64), dup=True),
+                          {**DROPSEQ_HINTS, "check": False}, 96),
+    "strided_view": (lambda: every_second_row(width_records(3000, 15, (24, 16, 16))),
+                     DROPSEQ_HINTS, 56),
+}
+
+
+@pytest.mark.parametrize("case", list(KEY_CASES))
+def test_compacted_key_sort_matches_jax_and_numpy(case):
+    """The plain compacted-key sort (the CPU's route through ``sort_records``)
+    against the JAX package and ``np.sort``; an unchecked hint's dropped hi
+    words come back as zeros."""
+    make, hints, bits = KEY_CASES[case]
+    records, t = case_tensor(make(), CPU)
+    hi_used = (hints.get("bc_len", 32) > 16, hints.get("umi_len", 32) > 16,
+               hints.get("index_bits", 64) > 32)
+    ors = SC.plain_field_ors(t).tolist()
+    assert sum(SC.key_widths(ors, hi_used)) == bits
+    masked = records.copy()
+    for f, name in enumerate(("barcode", "umi", "index")):
+        if not hi_used[f]:
+            masked[name] &= np.uint64(0xFFFFFFFF)
+    want = np.sort(masked, order=("barcode", "umi", "index"))
+    got = records_from_tensor(TS.sort_records(t, **hints))
+    assert got.tobytes() == want.tobytes()
+    exact = SC.plain_sort_records(t, hi_used, widths=SC.key_widths(ors, hi_used))
+    assert records_from_tensor(exact).tobytes() == want.tobytes()
+    if len(records):
+        jax_want = records_from_soa(
+            np.asarray(JS.sort_records_soa(jnp.asarray(soa_from_records(records)), **hints))
+        )
+        assert got.tobytes() == jax_want.tobytes()
+
+
+@pytest.mark.parametrize("widths, words, passes", [
+    ((0, 0, 0), 0, 0), ((24, 16, 16), 1, 7), ((24, 16, 23), 1, 8), ((32, 16, 16), 1, 8),
+    ((33, 16, 16), 2, 9), ((32, 24, 16), 2, 9), ((64, 32, 32), 2, 16), ((64, 33, 32), 3, 17),
+    ((64, 64, 64), 3, 24), ((1, 0, 0), 1, 1),
+])
+def test_sort_plan_of_the_widths(widths, words, passes):
+    assert SC.plan(widths) == (words, passes)
+
+
+def test_key_widths_masks_and_bounds():
+    ors = [-1, 0x1_0000_0001, 0]  # bit 63 set (int64 bits), bit 32, nothing
+    assert SC.key_widths(ors, (True, True, True)) == (64, 33, 0)
+    assert SC.key_widths(ors, (False, False, False)) == (32, 1, 0)
+    assert SC.bound_widths((False, True, False)) == (32, 64, 32)
+    hints = SC.Hints((False, True, False))
+    assert hints == (False, True, False) and hints.ors is None and hints.widths is None
+    assert SC.launch_widths(hints) == (32, 64, 32)
+    assert SC.launch_widths(SC.Hints(hints, widths=(3, 40, 0))) == (3, 40, 0)
+
+
+def test_sort_impl_takes_a_plain_tuple_of_flags():
+    """``_sort_impl(records, hi_used)`` sorts given three flags alone, as
+    given :func:`sort_records`' hints."""
+    records = width_records(500, 16, (40, 20, 36))
+    t = records_to_tensor(records, CPU)
+    want = np.sort(records, order=("barcode", "umi", "index"))
+    for hi_used in ((True, True, True), SC.Hints((True, True, True))):
+        assert records_from_tensor(TS._sort_impl(t, hi_used)).tobytes() == want.tobytes()
 
 
 def test_soa_converters_roundtrip():
