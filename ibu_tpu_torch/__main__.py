@@ -703,7 +703,9 @@ def main(argv=None) -> int:
              "host: numpy np.unique merge (no device)",
     )
     p.add_argument("--max-uniques", type=int, default=1 << 16,
-                   help="per-batch unique-barcode capacity")
+                   help="per-batch unique-barcode capacity (24-base split-pool "
+                        "barcodes, as SPLiT-seq's, need 2^19 = 524288 at "
+                        "2^20-record batches)")
     p.add_argument("--device-table", type=int, default=0, metavar="CAP",
                    help="merge batches on the device in a CAP-entry table "
                         "(bounded barcode spaces; default: host-dict merge; "

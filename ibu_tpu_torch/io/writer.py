@@ -26,6 +26,7 @@ import numpy as np
 from ibu_tpu_torch.constructs.header import Header
 from ibu_tpu_torch.constructs.record import RECORD_DTYPE, RECORD_SIZE, Record
 from ibu_tpu_torch.errors import IbuIoError
+from ibu_tpu_torch.utils import trace
 
 #: 48K records, same as the reference (``writer.rs:10``).
 DEFAULT_BUFFER_RECORDS: int = 48 * 1024
@@ -169,16 +170,23 @@ class Writer:
 
     def write_batch(self, records) -> None:
         """Append a structured array of :data:`RECORD_DTYPE` (written as one
-        view of its bytes) or any iterable of :class:`Record`."""
-        if isinstance(records, np.ndarray):
-            if records.dtype != RECORD_DTYPE:
-                raise ValueError(f"write_batch expects dtype {RECORD_DTYPE}, got {records.dtype}")
-            arr = np.ascontiguousarray(records)
-            self._write_slice(memoryview(arr).cast("B"), len(arr))
-        else:
-            records = list(records)
-            data = b"".join(r.as_bytes() for r in records)
-            self._write_slice(memoryview(data), len(records))
+        view of its bytes) or any iterable of :class:`Record`. Traced as
+        ``file.write``, its ``written_bytes`` the batch's record bytes."""
+        with trace.span("file.write"):
+            if isinstance(records, np.ndarray):
+                if records.dtype != RECORD_DTYPE:
+                    raise ValueError(
+                        f"write_batch expects dtype {RECORD_DTYPE}, got {records.dtype}"
+                    )
+                arr = np.ascontiguousarray(records)
+                data = memoryview(arr).cast("B")
+                n = len(arr)
+            else:
+                records = list(records)
+                data = memoryview(b"".join(r.as_bytes() for r in records))
+                n = len(records)
+            self._write_slice(data, n)
+            trace.count("written_bytes", len(data))
 
     #: below this many bytes a threaded pwrite is not worth starting
     _NATIVE_WRITE_MIN_BYTES = 8 << 20

@@ -313,9 +313,13 @@ def _sparse_group_sum_spill(
 
 
 def _shard_overflow(seen: int, cap: int) -> ValueError:
+    """The reference's text, naming the least power of two that holds the
+    batch's ``seen`` distinct barcodes as the cap to raise to."""
+    fit = 1 << (seen - 1).bit_length()
     return ValueError(
         f"a shard saw {seen} unique barcodes, over the "
-        f"max_uniques_per_shard={cap} capacity; raise the cap or use smaller batches"
+        f"max_uniques_per_shard={cap} capacity; raise the cap to {fit} (the CLI's "
+        "--max-uniques) or use smaller batches"
     )
 
 
@@ -484,12 +488,14 @@ class DeviceHistogram:
         n = int(ovf_n)
         if n == 0:
             return
-        # live groups are a prefix of the lane; fetch a power-of-two prefix
-        m = min(1 << (n - 1).bit_length(), o_keys.shape[0])
-        keys, cnt = to_host(o_keys[:m]), to_host(o_cnt[:m])
-        nz = cnt != 0
-        for k, c in zip(keys[nz].view(np.uint64).tolist(), cnt[nz].tolist()):
-            self._spilled[k] = self._spilled.get(k, 0) + c
+        with trace.span("hist.spill"):
+            trace.count("hist_spilled_groups", n)
+            # live groups are a prefix of the lane; fetch a power-of-two prefix
+            m = min(1 << (n - 1).bit_length(), o_keys.shape[0])
+            keys, cnt = to_host(o_keys[:m]), to_host(o_cnt[:m])
+            nz = cnt != 0
+            for k, c in zip(keys[nz].view(np.uint64).tolist(), cnt[nz].tolist()):
+                self._spilled[k] = self._spilled.get(k, 0) + c
 
     def finalize(self, failed: BaseException | None = None) -> dict[int, int]:
         """Flush the stage, fetch the table once; returns ``{barcode:
