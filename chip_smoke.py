@@ -44,7 +44,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``plain_sort_records`` and ``field_ors`` against ``plain_field_ors``,
    then timed beside them and beside ``torch.sort`` of the packed key, with
    each of its four kernels' device time and launches a sort from
-   ``torch.profiler``;
+   ``torch.profiler``; then the histogram engine's group-by
+   (``ops/group_sum.py``) in each mode of ``GROUP_MODES`` (a batch and a
+   merge at the Drop-seq and SPLiT-seq cells' shapes), held exactly against
+   ``plain_group_sum`` on 3 input sets and timed beside it and beside the
+   chain it replaced (``torch.sort``, boundary flags, cumsum,
+   ``searchsorted`` and gathers), each of its four kernels' device time and
+   launches a call from ``torch.profiler``;
 8. run both codec labs (:mod:`ibu_tpu_torch.labs.sol_lab` and
    :mod:`ibu_tpu_torch.labs.kernel_lab`) at 10M records: every variant and
    layout checked exactly against the host oracle, then timed, with the copy
@@ -270,10 +276,17 @@ from ibu_tpu_torch.labs import (
 from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as C
 from ibu_tpu_torch.ops import codec_cuda as K
+from ibu_tpu_torch.ops import group_sum as GS
 from ibu_tpu_torch.ops import sort_cuda as SC
 from ibu_tpu_torch.ops import stats as S
 from ibu_tpu_torch.ops.correct import variant_deltas
-from ibu_tpu_torch.ops.u64 import U64_MASK, flip_sign, records_from_tensor, records_to_tensor
+from ibu_tpu_torch.ops.u64 import (
+    U64_MASK,
+    flip_sign,
+    records_from_tensor,
+    records_to_tensor,
+    to_signed,
+)
 from ibu_tpu_torch.parallel import device as D
 from ibu_tpu_torch.parallel import select as SEL
 from ibu_tpu_torch.validate import run_matrix
@@ -351,6 +364,26 @@ SORT_MODES = {
     "sort_batch": ((32, 24, 24), {"bc_len": 16, "umi_len": 12, "index_bits": 32}),
     "unhinted": ((32, 24, 24), {}),
     "dropseq": ((24, 16, 16), {"bc_len": 12, "umi_len": 8, "index_bits": 32}),
+}
+#: the group-by's kernels (``csrc/record_sort.cu``) in launch order, and the
+#: bytes each must move an entry for ``w`` live key words, ``v`` bytes of
+#: input (8 a key, 8 more a weight) and ``s`` output slots an entry (each
+#: 16 B, written once)
+GROUP_KERNELS = {
+    "group_or_kernel": lambda w, v, s: v,
+    "group_pack_kernel": lambda w, v, s: v + 8 * w,
+    "pass_kernel": lambda w, v, s: 16 * w,  # one pass over a live digit
+    "segment_kernel": lambda w, v, s: 8 * w + 16 * s,
+}
+#: the group-by at the histogram cells' shapes: mode → (key bits, distinct
+#: keys, batches staged, table slots, staged table slots, 32-bit hint). A
+#: batch mode is one 2^20-record batch; a merge mode the table (filled from
+#: 4 x 2^20 records) and that many staged batch tables, as the engine merges
+GROUP_MODES = {
+    "dropseq batch": (24, 110_000, 0, 0, 1 << 17, True),
+    "splitseq batch": (48, 390_000, 0, 0, 1 << 19, False),
+    "dropseq merge": (24, 183_000, 10, 1 << 20, 1 << 17, True),
+    "splitseq merge": (48, 1_176_000, 16, 1 << 20, 1 << 19, False),
 }
 SEED = 0
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -904,6 +937,147 @@ def record_sort_phase(card, n: int) -> list[dict]:
             "wrapper": f"ibu_tpu_torch/ops/sort_cuda.py::{wrapper}",
             "replaces": None,  # the reference sorts with lax.sort
             "launches": None,  # filled in by main: the wrapper's launches a leg
+            "max_abs_err": max(m["max_abs_err"] for m in modes[name].values()),
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": top["library_ms"],
+            "modes": modes[name],
+        })
+    return out
+
+
+def library_group_sum(parts, n_slots: int, key_mask: int):
+    """The chain the group-by replaced, as the histogram engine ran it: a
+    batch's ``torch.sort`` of its barcodes, boundary flags, a cumsum and two
+    ``searchsorted`` over the table; a merge's two stable argsorts
+    (validity, then key) and the same chain over the sums' prefix."""
+    if parts[0][1] is None:
+        bc = parts[0][0] & to_signed(key_mask)
+        srt = flip_sign(torch.sort(flip_sign(bc)).values)
+        starts, ends, n = S._group_bounds(S._changed([srt]), n_slots)
+        counts = ends - starts
+        return torch.where(counts > 0, srt[starts.clamp(max=len(srt) - 1)], 0), counts, n
+    keys = torch.cat([k for k, _ in parts])
+    weights = torch.cat([w for _, w in parts])
+    invalid = weights == 0
+    perm = S._lex_order([invalid.to(torch.int64), keys], [32, 64])
+    keys, weights, invalid = keys[perm], weights[perm], invalid[perm]
+    first = S._changed([invalid]) | (S._changed([keys]) & ~invalid)
+    starts, ends, _ = S._group_bounds(first, n_slots)
+    sums = S._prefix(weights)
+    counts = sums[ends] - sums[starts]
+    out = torch.where(counts > 0, keys[starts.clamp(max=len(keys) - 1)], 0)
+    return out, counts, (first & ~invalid).sum()
+
+
+def group_sets(card, gen, mode: str) -> tuple[list, dict]:
+    """3 input sets of ``mode`` (:data:`GROUP_MODES`) on the card, each the
+    parts of one call, and the call's keyword arguments."""
+    bits, distinct, staged, table, slots, bc16 = GROUP_MODES[mode]
+    mask = 0xFFFFFFFF if bc16 else U64_MASK
+
+    def batch(pool):
+        n = 1 << 20
+        bc = pool[torch.randint(0, len(pool), (n,), generator=gen, device=card)]
+        return torch.stack([bc, torch.randint(0, 1 << 30, (n,), generator=gen, device=card),
+                            torch.randint(0, 1 << 30, (n,), generator=gen, device=card)], dim=1)
+
+    sets = []
+    for _ in range(3):
+        pool = torch.randint(0, 1 << bits, (distinct,), generator=gen, device=card)
+        if not staged:
+            sets.append([(batch(pool)[:, 0], None)])
+            continue
+        big = torch.cat([batch(pool) for _ in range(4)])
+        parts = [S.barcode_histogram(big, table)[:2]]
+        parts += [S.barcode_histogram(batch(pool), slots)[:2] for _ in range(staged)]
+        sets.append(parts)
+    if not staged:
+        return sets, {"n_slots": slots, "key_bits": 32 if bc16 else 64, "key_mask": mask}
+    lane = staged * slots
+    return sets, {"n_slots": table + lane, "key_bits": 32 if bc16 else 64,
+                  "count_bits": (staged << 20).bit_length(), "key_mask": mask}
+
+
+def group_sum_phase(card) -> list[dict]:
+    """Phase 7, the histogram engine's group-by: each mode of
+    :data:`GROUP_MODES` held exactly against ``plain_group_sum`` (run on the
+    card) on 3 input sets, then timed beside it and beside
+    :func:`library_group_sum`, each kernel's device time and launches a call
+    from the profiler; returns one kernels-line entry a kernel."""
+    gen = torch.Generator(device=card).manual_seed(SEED + 5)
+    modes: dict = {name: {} for name in GROUP_KERNELS}
+    for mode in GROUP_MODES:
+        sets, kw = group_sets(card, gen, mode)
+        n_slots, mask = kw["n_slots"], kw["key_mask"]
+
+        def card_sum(*parts, kw=kw):
+            return GS.group_sum(list(parts), **kw)
+
+        def plain_sum(*parts, n_slots=n_slots, mask=mask):
+            return GS.plain_group_sum(list(parts), n_slots, mask)
+
+        def library(*parts, n_slots=n_slots, mask=mask):
+            return library_group_sum(list(parts), n_slots, mask)
+
+        sets = [tuple(parts) for parts in sets]
+        err = 0.0
+        for parts in sets:
+            err = max(err, max_abs_err(list(card_sum(*parts)), list(plain_sum(*parts))),
+                      max_abs_err(list(card_sum(*parts)), list(library(*parts))))
+            torch.cuda.synchronize()
+        require(err == 0.0, f"group-by {mode}: the kernels equal the plain version and the "
+                "chain they replaced")
+        weighted = sets[0][0][1] is not None
+        n = sum(len(k) for k, _ in sets[0])
+        rows = torch.stack([GS._compact(list(sets[0]), mask)[:, f] for f in range(3)], dim=1)
+        width = sum(SC.key_widths(SC.plain_field_ors(rows).tolist(), (True,) * 3))
+        words, live = SC.plan([width])
+        _, launched = GS.plan(kw["key_bits"], kw.get("count_bits", 0), weighted)
+        wall_ms, plain_ms = time_pair(card_sum, plain_sum, sets, iters=10, plain_iters=3)
+        library_ms, _ = time_pair(library, library, sets, iters=10, plain_iters=1)
+        prof = kernel_ms_by_name(card_sum, sets, list(GROUP_KERNELS))
+        inputs = 16 if weighted else 8
+        for name, nbytes in GROUP_KERNELS.items():
+            passes = live if name == "pass_kernel" else 1
+            ms, k = prof[name] if prof is not None else (None, None)
+            if prof is not None:
+                # unweighted entries are ORed by the pack: no OR kernel runs
+                want = {"pass_kernel": launched,
+                        "group_or_kernel": int(weighted)}.get(name, 1)
+                require(round(k, 6) == want,
+                        f"group-by {mode}: {name} launched {want} time(s) a call: {k}")
+            modes[name][mode] = {
+                "entries": n,
+                "key_bits": width,
+                "key_words": words,
+                "passes_live": live,
+                "passes_launched": launched,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": passes * nbytes(words, inputs, n_slots / n) * n / (LH.PEAK_GBPS * 1e6),
+                "library_ms": library_ms,
+                "call_ms": wall_ms,
+            }
+        note = "not measured" if prof is None else ", ".join(
+            f"{name} {prof[name][0]:.4f} ms x{prof[name][1]:g}" for name in GROUP_KERNELS)
+        log(f"timing: group-by {mode} ({n} entries, {width} bits, {words} word(s), {live} live "
+            f"of {launched} passes): call {wall_ms:.4f} ms (events), plain {plain_ms:.4f} ms, "
+            f"library chain {library_ms:.4f} ms; profiler: {note}; exact on 3 sets")
+        del sets
+    out = []
+    for name in GROUP_KERNELS:
+        top = modes[name]["dropseq batch"]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ibu_tpu_torch/csrc/record_sort.cu",
+            "wrapper": "ibu_tpu_torch/ops/group_sum.py::group_sum",
+            "replaces": None,  # the reference groups with lax.sort and searchsorted
+            "launches": None,  # filled in by main: the wrapper's calls on the histogram path
             "max_abs_err": max(m["max_abs_err"] for m in modes[name].values()),
             "ms": top["ms"],
             "plain_ms": top["plain_ms"],
@@ -2394,13 +2568,18 @@ def main() -> int:
         launches = matrix_phase(card)
         require_sorts("the validation matrix (phase 5: device sort, hinted sort)", 2)
         reset_launches()
+        GS.group_sum.launches = 0
         histogram_path(card, N_MAIN, workdir)
-        log(f"launches on the histogram path (torch ops, no codec kernel): {read_launches()}")
+        group_launches = GS.group_sum.launches
+        log(f"launches on the histogram path (no codec kernel): {read_launches()}, the "
+            f"group-by {group_launches}")
+        require(group_launches > 0, "the histogram path ran the group-by kernels")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = time_kernels(card, N_MAIN, launches)
     kernels += record_sort_phase(card, N_MAIN)
+    kernels += group_sum_phase(card)
     kernels += labs_phase(card, N_MAIN)
     kernels += sort_lab_phase(card, N_SORT_LAB)
     # phases 10 and 11 keep their files for phase 12, which reads them
@@ -2429,7 +2608,9 @@ def main() -> int:
                                       for got in cohort_launches["dryrun_rank"]]}
     for entry in kernels:
         name = entry["name"]
-        if name in SORT_KERNELS:
+        if entry.get("wrapper", "").endswith("group_sum.py::group_sum"):
+            entry["launches"] = {"histogram path (phase 6)": group_launches}
+        elif name in SORT_KERNELS:
             wrapper = SORT_KERNELS[name][0]
             entry["launches"] = {leg: got[wrapper] for leg, got in SORT_LAUNCHES.items()}
         if name == "encode_records":

@@ -61,6 +61,9 @@
 // scratch buffer (ibu_record_sort_scratch_bytes), which ibu_record_sort
 // zeroes where it must with cudaMemsetAsync. Each C entry point returns the
 // first launch error, or cudaErrorInvalidValue for arguments out of range.
+//
+// The file's second part is the histogram engine's group-by (ibu_group_sum),
+// which sorts its own compacted key with the same pass_kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -460,5 +463,459 @@ extern "C" int ibu_record_sort(const void* records, int64_t n, const void* ors, 
     case 1: return run_sort<1>(rec, n, o, masks, passes, sc, dst, s);
     case 2: return run_sort<2>(rec, n, o, masks, passes, sc, dst, s);
     default: return run_sort<3>(rec, n, o, masks, passes, sc, dst, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The histogram engine's group-by (ibu_group_sum; the wrapper and its plain
+// torch version are ibu_tpu_torch/ops/group_sum.py): (key, weight) entries to
+// a table of (distinct key, summed weight) in ascending unsigned key order,
+// the tail zeroed, and the true number of distinct keys. A batch's histogram
+// is this with unit weights (no weight column); a merge of the device table
+// with the staged batch tables is this with counts as weights, where a weight
+// of 0 marks an empty entry. The entries come as up to kMaxRanges ranges
+// (the table and each staged row, or one batch's barcode column at a stride
+// of 3 words), so nothing is concatenated first.
+//
+// The key. After the hint mask, an entry's key holds w_key bits, its weight
+// w_cnt bits (the bit lengths of their ORs over the valid entries), and an
+// empty entry sets the validity bit (w_inv = 1 where any entry is empty):
+//   invalid << (w_key + w_cnt) | key << w_cnt | weight
+// with the key and weight of an empty entry zeroed, so the empties are one
+// group that sorts after every valid one, whatever its key: barcode 0 never
+// merges with an empty slot. The key is lossless, so equal keys are equal
+// entries and the sort needs no payload. It is the record sort's key with
+// the fields (invalid, key, weight) in place of (barcode, umi, index), so the
+// record sort's pass_kernel sorts it as it is.
+//
+// The kernels, in stream order (one cudaMemsetAsync of the scratch first):
+// - group_or_kernel: the three ORs (reads each entry once). The host
+//   launches passes up to a bound it knows (32 or 64 key bits, the bit
+//   length of the records counted so far, the validity bit), and every
+//   kernel works the width out from the ORs, so a pass above it returns at
+//   once and nothing waits on the card.
+// - group_pack_kernel: the key's live planes and every live pass's digit
+//   histogram, as pack_kernel. Unweighted entries are their keys at bit 0
+//   whatever the width, so there the pack ORs the keys itself, counts the
+//   digits of every launched pass, and no group_or_kernel runs.
+// - pass_kernel (the record sort's), one launch a pass.
+// - two cudaMemsetAsync (the output's keys and sums), then segment_kernel:
+//   one tile of sorted keys a block (2048 of one word, 1024 of two or three),
+//   staged in shared memory, each thread holding seg_items adjacent ones. A
+//   boundary is where (invalid, key) changes. Each group's id is the count
+//   of valid boundaries before it: a block scan, and a look-back over the
+//   tiles before by one warp, 32 tiles a step (one status word a tile, as
+//   pass_kernel's). Each group's sum within the tile is a segmented block
+//   scan of the weights; a group wholly inside the tile stores its sum, and
+//   a group cut by a tile's edge adds each tile's part to the zeroed slot
+//   with an atomic. Group g < n_slots lands in slot g (key at its first
+//   entry); the entry N - 1 leaves the count of valid groups in
+//   *n_distinct, above n_slots too.
+//
+// What bounds it on an H100: the passes, at about a third of their 16 B a
+// key (the record sort's rate), take 60% of a Drop-seq batch's 0.13 ms.
+// The segment kernel takes about 20 us a 2^20 batch, 0.4 TB/s of its bytes;
+// a count kernel and a one-block scan of the tiles' counts in place of the
+// look-back took as long in three launches, so its own work, not the
+// look-back's chain, bounds it.
+
+namespace {
+
+constexpr int kMaxRanges = 64;
+// Entries a thread of the segment kernel holds, by key words (shared memory
+// holds the tile's words).
+__host__ __device__ constexpr int seg_items(int words) { return words == 1 ? 8 : 4; }
+constexpr int64_t kGroupOrsBytes = 32;  // three u64, padded
+
+// The entries: range q holds start[q + 1] - start[q] keys at a stride of
+// stride[q] words and, where weighted, as many contiguous weights.
+struct Ranges {
+  const uint64_t* keys[kMaxRanges];
+  const uint64_t* weights[kMaxRanges];
+  int64_t stride[kMaxRanges];
+  int64_t start[kMaxRanges + 1];
+  uint64_t key_mask;
+  int count;
+  int weighted;
+};
+
+// An entry's (invalid, key, weight) as the key's fields; an empty entry's
+// key and weight are zeroed, and unweighted entries carry no weight field.
+struct Fields {
+  uint64_t f[3];
+};
+
+__device__ __forceinline__ Fields entry_fields(const Ranges& r, int q, int64_t i) {
+  Fields e;
+  e.f[1] = r.keys[q][i * r.stride[q]] & r.key_mask;
+  e.f[2] = r.weighted ? r.weights[q][i] : 0;
+  e.f[0] = r.weighted && e.f[2] == 0;
+  if (e.f[0]) e.f[1] = 0;
+  return e;
+}
+
+template <int NW>
+__device__ __forceinline__ Fields key_fields(const uint64_t (&k)[NW], const Layout& l) {
+  Fields e;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) e.f[f] = get(k, l.offset[f], l.width[f]);
+  return e;
+}
+
+// Whether two keys fall in different groups: (invalid, key) differ.
+__device__ __forceinline__ bool other_group(const Fields& a, const Fields& b) {
+  return a.f[0] != b.f[0] || a.f[1] != b.f[1];
+}
+
+__global__ void __launch_bounds__(kThreads)
+group_or_kernel(Ranges r, unsigned long long* __restrict__ ors) {
+  __shared__ uint64_t part[3][kWarps];
+  uint64_t acc[3] = {0, 0, 0};
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  for (int q = 0; q < r.count; ++q) {
+    const int64_t n = r.start[q + 1] - r.start[q];
+    for (int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
+      const Fields e = entry_fields(r, q, i);
+#pragma unroll
+      for (int f = 0; f < 3; ++f) acc[f] |= e.f[f];
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    const uint64_t v = or_warp(acc[f]);
+    if (lane == 0) part[f][warp] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    uint64_t v = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v |= part[threadIdx.x][w];
+    if (v) atomicOr(&ors[threadIdx.x], (unsigned long long)v);
+  }
+}
+
+// Unweighted entries are their masked keys at bit 0, whatever the key's
+// width: the kernel ORs the keys itself (no group_or_kernel runs first) and
+// counts the digits of the ``bound`` passes the host launches.
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+group_pack_kernel(Ranges r, unsigned long long* __restrict__ ors, Masks masks, int bound,
+                  uint64_t* __restrict__ keys, unsigned* __restrict__ hist) {
+  __shared__ unsigned counts[kMaxPasses * kDigits];
+  __shared__ uint64_t part[kWarps];
+  Layout l = {{0, 64, 0}, {0, 0, 0}, 64};
+  if (r.weighted) l = key_layout(ors, masks);
+  const int passes = r.weighted ? (l.bits + 7) >> 3 : bound;
+  const int live = r.weighted ? (l.bits + 63) >> 6 : 1;
+  const int64_t n = r.start[r.count];
+  uint64_t acc = 0;
+  for (int c = threadIdx.x; c < passes * kDigits; c += kThreads) counts[c] = 0;
+  __syncthreads();
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  for (int q = 0; q < r.count; ++q) {
+    const int64_t len = r.start[q + 1] - r.start[q];
+    for (int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x; i < len; i += stride) {
+      const Fields e = entry_fields(r, q, i);
+      acc |= e.f[1];
+      uint64_t k[NW];
+#pragma unroll
+      for (int j = 0; j < NW; ++j) k[j] = 0;
+#pragma unroll
+      for (int f = 0; f < 3; ++f) put(k, e.f[f], l.offset[f], l.width[f]);
+      const int64_t at = r.start[q] + i;
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        if (j < live) keys[j * n + at] = k[j];
+      }
+#pragma unroll
+      for (int p = 0; p < 8 * NW; ++p) {
+        if (p < passes) atomicAdd(&counts[p * kDigits + digit_of(k, p)], 1u);
+      }
+    }
+  }
+  if (!r.weighted) {
+    acc = or_warp(acc);
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < passes * kDigits; c += kThreads) {
+    if (counts[c]) atomicAdd(&hist[c], counts[c]);
+  }
+  if (!r.weighted && threadIdx.x == 0) {
+    uint64_t v = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v |= part[w];
+    if (v) atomicOr(&ors[1], (unsigned long long)v);
+  }
+}
+
+// A tile's entry p in shared memory: one pad word after every 8, so that a
+// thread's adjacent entries fall in other banks than its neighbour's.
+__device__ __forceinline__ int padded(int p) { return p + (p >> 3); }
+
+template <int NW>
+__global__ void __launch_bounds__(kThreads)
+segment_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b, int64_t n,
+               const unsigned long long* __restrict__ ors, Masks masks, int weighted,
+               unsigned long long* __restrict__ out_keys, unsigned long long* __restrict__ out_sums,
+               int64_t n_slots, long long* __restrict__ n_distinct, unsigned long long* status,
+               unsigned* counter) {
+  constexpr int kSegItems = seg_items(NW);
+  constexpr int kSegTile = kThreads * kSegItems;
+  __shared__ uint64_t words[NW][kSegTile + kSegTile / 8];
+  __shared__ long long scan_scratch[kWarps];
+  __shared__ int warp_began[kWarps];
+  __shared__ unsigned long long warp_sum[kWarps];
+  __shared__ long long tile_groups;
+  __shared__ long long tile_prefix;
+  __shared__ unsigned tile_slot;
+
+  const Layout l = key_layout(ors, masks);
+  const int live = (l.bits + 63) >> 6;
+  // pass p reads buffer p % 2 and writes the other
+  const uint64_t* src = (((l.bits + 7) >> 3) & 1) ? b : a;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) tile_slot = atomicAdd(counter, 1u);
+  __syncthreads();
+  const int64_t tile = tile_slot;
+  const int64_t base = tile * kSegTile;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    for (int i = tid; i < kSegTile; i += kThreads) {
+      words[j][padded(i)] = (j < live && base + i < n) ? src[j * n + base + i] : 0;
+    }
+  }
+  __syncthreads();
+
+  auto at = [&](int p) {
+    uint64_t k[NW];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) k[j] = words[j][padded(p)];
+    return key_fields(k, l);
+  };
+  const int p0 = tid * kSegItems;
+  Fields prev;
+  if (p0 > 0) {
+    prev = at(p0 - 1);
+  } else {
+    uint64_t k[NW];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) k[j] = (base > 0 && j < live) ? src[j * n + base - 1] : 0;
+    prev = key_fields(k, l);
+  }
+
+  // per entry: a group starts here (brk), it belongs to a valid group (real)
+  bool brk[kSegItems], real[kSegItems];
+  uint64_t key[kSegItems];
+  unsigned long long w[kSegItems];
+  int starts = 0;       // valid groups starting in this thread's entries
+  int began = 0;        // a group starts in this thread's entries
+  unsigned long long run = 0;  // the weights since the thread's last group start (mod 2^64)
+#pragma unroll
+  for (int k = 0; k < kSegItems; ++k) {
+    const int64_t i = base + p0 + k;
+    const Fields e = at(p0 + k);
+    const bool valid = i < n;
+    brk[k] = valid && (i == 0 || other_group(e, prev));
+    real[k] = valid && e.f[0] == 0;
+    key[k] = e.f[1];
+    w[k] = real[k] ? (weighted ? e.f[2] : 1) : 0;
+    starts += brk[k] && real[k];
+    if (brk[k]) {
+      began = 1;
+      run = 0;
+    }
+    run += w[k];
+    prev = e;
+  }
+  // whether the next thread's first entry starts a group
+  const int pn = p0 + kSegItems;
+  const bool next_brk = pn < kSegTile && base + pn < n && other_group(at(pn), prev);
+
+  // segmented scan of (began, run) over the block: the open group's sum at
+  // the thread's first entry, and whether it began inside this tile
+  int fi = began;
+  unsigned long long si = run;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int f = __shfl_up_sync(kFull, fi, d);
+    const unsigned long long s = __shfl_up_sync(kFull, si, d);
+    if (lane >= d) {
+      if (!fi) si += s;
+      fi |= f;
+    }
+  }
+  int fe = __shfl_up_sync(kFull, fi, 1);
+  unsigned long long se = __shfl_up_sync(kFull, si, 1);
+  if (lane == 0) {
+    fe = 0;
+    se = 0;
+  }
+  if (lane == 31) {
+    warp_began[warp] = fi;
+    warp_sum[warp] = si;
+  }
+  const long long groups_before = exclusive_scan(starts, scan_scratch);  // syncs the block
+  int cf = 0;
+  unsigned long long cs = 0;
+  for (int v = 0; v < warp; ++v) {
+    cs = warp_began[v] ? warp_sum[v] : cs + warp_sum[v];
+    cf |= warp_began[v];
+  }
+  unsigned long long sum = fe ? se : cs + se;
+  bool inside = fe || cf;
+
+  if (tid == kThreads - 1) tile_groups = groups_before + starts;
+  __syncthreads();
+  if (warp == 0) {  // the valid groups of the tiles before: decoupled look-back
+    const uint64_t tag = uint64_t(1) << 56;
+    const long long count = tile_groups;
+    volatile unsigned long long* vs = status;
+    if (lane == 0) vs[tile] = (tile == 0 ? kPrefix : kAggregate) | tag | uint64_t(count);
+    long long prefix = 0;
+    // 32 tiles a step, the nearest in lane 0; before tile 0 an empty prefix
+    for (int64_t t = tile - 1; t >= 0; t -= 32) {
+      const int64_t mine = t - lane;
+      uint64_t s = kPrefix;
+      for (int64_t spins = 0;;) {
+        if (mine >= 0) s = vs[mine];
+        if (!__any_sync(kFull, (s >> 62) == 0)) break;
+        // the tiles before were taken by running blocks, so they publish in
+        // microseconds; a wait of seconds is a fault, reported as one
+        if (++spins > (int64_t(1) << 26)) __trap();
+      }
+      const unsigned done = __ballot_sync(kFull, (s >> 62) == 2);
+      const int stop = done ? __ffs(done) - 1 : 31;  // the nearest inclusive prefix
+      long long v = lane <= stop ? static_cast<long long>(s & kCountMask) : 0;
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+      prefix += v;
+      if (done) break;
+    }
+    if (lane == 0) {
+      if (tile > 0) vs[tile] = kPrefix | tag | uint64_t(prefix + count);
+      tile_prefix = prefix;
+    }
+  }
+  __syncthreads();
+
+  long long groups = tile_prefix + groups_before;  // valid groups up to the entry
+#pragma unroll
+  for (int k = 0; k < kSegItems; ++k) {
+    const int p = p0 + k;
+    const int64_t i = base + p;
+    if (brk[k]) {
+      sum = 0;
+      inside = true;
+    }
+    sum += w[k];
+    groups += brk[k] && real[k];
+    if (i == n - 1) *n_distinct = groups;
+    const long long g = groups - 1;
+    if (!real[k] || g >= n_slots) continue;
+    if (brk[k]) out_keys[g] = key[k];
+    // the group's last entry in this tile: store its sum, or add this
+    // tile's part where another tile holds the rest
+    const bool cut = i != n - 1 && p + 1 == kSegTile;
+    const bool ends = i == n - 1 || cut || (k + 1 < kSegItems ? brk[k + 1] : next_brk);
+    if (ends) {
+      if (inside && !cut) {
+        out_sums[g] = sum;
+      } else {
+        atomicAdd(&out_sums[g], sum);
+      }
+    }
+  }
+}
+
+// tiles of the segment kernel
+int64_t seg_tiles(int64_t n, int words) {
+  const int64_t tile = int64_t(kThreads) * seg_items(words);
+  return (n + tile - 1) / tile;
+}
+
+// the record sort's zeroed part | ors | the segment kernel's counter and
+// status (zeroed) | keys a | keys b
+int64_t group_zeroed_bytes(int64_t n, int words) {
+  return zeroed_bytes(n, words) + kGroupOrsBytes + kCounterBytes + seg_tiles(n, words) * 8;
+}
+
+template <int NW>
+int run_group_sum(const Ranges& r, int passes, char* scratch, unsigned long long* out_keys,
+                  unsigned long long* out_sums, int64_t n_slots, long long* n_distinct,
+                  cudaStream_t stream) {
+  constexpr int kItems = items_for(NW);
+  const int64_t n = r.start[r.count];
+  const Masks all = {{~uint64_t(0), ~uint64_t(0), ~uint64_t(0)}};
+  unsigned* hist = reinterpret_cast<unsigned*>(scratch);
+  unsigned* counter = reinterpret_cast<unsigned*>(scratch + kHistBytes);
+  unsigned long long* status =
+      reinterpret_cast<unsigned long long*>(scratch + kHistBytes + kCounterBytes);
+  char* tail = scratch + zeroed_bytes(n, NW);
+  unsigned long long* ors = reinterpret_cast<unsigned long long*>(tail);
+  unsigned* seg_counter = reinterpret_cast<unsigned*>(tail + kGroupOrsBytes);
+  unsigned long long* seg_status =
+      reinterpret_cast<unsigned long long*>(tail + kGroupOrsBytes + kCounterBytes);
+  uint64_t* keys[2];
+  keys[0] = reinterpret_cast<uint64_t*>(scratch + group_zeroed_bytes(n, NW));
+  keys[1] = keys[0] + int64_t(NW) * n;
+  cudaError_t rc = cudaMemsetAsync(scratch, 0, size_t(group_zeroed_bytes(n, NW)), stream);
+  if (rc != cudaSuccess) return int(rc);
+  if (r.weighted) {
+    group_or_kernel<<<grid_for(n, 8), kThreads, 0, stream>>>(r, ors);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return int(rc);
+  }
+  group_pack_kernel<NW><<<grid_for(n, 4), kThreads, 0, stream>>>(r, ors, all, passes, keys[0],
+                                                                  hist);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return int(rc);
+  const int64_t tiles = tiles_for(n, NW);
+  for (int p = 0; p < passes; ++p) {
+    pass_kernel<NW, kItems><<<unsigned(tiles), kThreads, 0, stream>>>(
+        keys[p & 1], keys[(p + 1) & 1], n, ors, all, p, hist, status, counter);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return int(rc);
+  }
+  if ((rc = cudaMemsetAsync(out_keys, 0, size_t(n_slots) * 8, stream)) != cudaSuccess) return int(rc);
+  if ((rc = cudaMemsetAsync(out_sums, 0, size_t(n_slots) * 8, stream)) != cudaSuccess) return int(rc);
+  segment_kernel<NW><<<unsigned(seg_tiles(n, NW)), kThreads, 0, stream>>>(
+      keys[0], keys[1], n, ors, all, r.weighted, out_keys, out_sums, n_slots, n_distinct,
+      seg_status, seg_counter);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int64_t ibu_group_sum_scratch_bytes(int64_t n, int words) {
+  if (!args_ok(n, words, 0)) return -1;
+  return group_zeroed_bytes(n, words) + 2 * int64_t(words) * n * 8;
+}
+
+extern "C" int ibu_group_sum(int n_ranges, const void* const* keys, const int64_t* strides,
+                             const void* const* weights, const int64_t* lengths,
+                             uint64_t key_mask, int words, int passes, void* scratch,
+                             void* out_keys, void* out_sums, int64_t n_slots, void* n_distinct,
+                             void* stream) {
+  if (n_ranges < 1 || n_ranges > kMaxRanges || n_slots < 0) return int(cudaErrorInvalidValue);
+  Ranges r = {};
+  r.count = n_ranges;
+  r.key_mask = key_mask;
+  r.weighted = weights != nullptr;
+  for (int q = 0; q < n_ranges; ++q) {
+    if (lengths[q] < 0 || strides[q] < 1) return int(cudaErrorInvalidValue);
+    r.keys[q] = static_cast<const uint64_t*>(keys[q]);
+    r.weights[q] = weights ? static_cast<const uint64_t*>(weights[q]) : nullptr;
+    r.stride[q] = strides[q];
+    r.start[q + 1] = r.start[q] + lengths[q];
+  }
+  if (!args_ok(r.start[n_ranges], words, passes)) return int(cudaErrorInvalidValue);
+  auto* ok = static_cast<unsigned long long*>(out_keys);
+  auto* os = static_cast<unsigned long long*>(out_sums);
+  auto* nd = static_cast<long long*>(n_distinct);
+  char* sc = static_cast<char*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (words) {
+    case 1: return run_group_sum<1>(r, passes, sc, ok, os, n_slots, nd, s);
+    case 2: return run_group_sum<2>(r, passes, sc, ok, os, n_slots, nd, s);
+    default: return run_group_sum<3>(r, passes, sc, ok, os, n_slots, nd, s);
   }
 }

@@ -136,6 +136,14 @@ def load() -> ctypes.CDLL:
     lib.ibu_record_sort.restype = i32
     lib.ibu_record_sort_scratch_bytes.argtypes = [i64, i32]
     lib.ibu_record_sort_scratch_bytes.restype = i64
+    # parts; keys, strides, weights, lengths (one each a part), key mask; words, passes,
+    # scratch, out keys, out sums, slots, n_distinct, stream
+    ptrs, i64s = ctypes.POINTER(ptr), ctypes.POINTER(i64)
+    lib.ibu_group_sum.argtypes = [i32, ptrs, i64s, ptrs, i64s, u64, i32, i32, ptr, ptr, ptr, i64,
+                                  ptr, ptr]
+    lib.ibu_group_sum.restype = i32
+    lib.ibu_group_sum_scratch_bytes.argtypes = [i64, i32]
+    lib.ibu_group_sum_scratch_bytes.restype = i64
     lib.ibu_cuda_error_string.argtypes = [i32]
     lib.ibu_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

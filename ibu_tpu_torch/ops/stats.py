@@ -10,7 +10,9 @@ a plain torch version on the CPU.
 The aggregations (:func:`barcode_histogram`, :func:`molecule_counts`,
 :func:`pair_molecule_counts`) keep the JAX package's static-size contract:
 tables padded to a capacity with the tail zeroed, plus the true distinct
-count, which exceeds the capacity on overflow (the caller checks). Groups come
+count, which exceeds the capacity on overflow (the caller checks). The
+barcode histogram is the histogram engine's group-by
+(:mod:`ibu_tpu_torch.ops.group_sum`). In the molecule counts, groups come
 from one sort, boundary flags and a cumsum; each table slot finds its group's
 bounds by ``searchsorted``, so no record-sized scatter runs and nothing waits
 on the device. The numpy oracles are copies of the JAX package's (which
@@ -23,12 +25,12 @@ import numpy as np
 import torch
 
 from ibu_tpu_torch.ops import sort_cuda
-from ibu_tpu_torch.ops.u64 import SIGN_BIT, U64_MASK, flip_sign
+from ibu_tpu_torch.ops.group_sum import group_sum
+from ibu_tpu_torch.ops.u64 import U64_MASK, flip_sign
 from ibu_tpu_torch.utils import trace
 
 _FIELDS = ("barcode", "umi", "index")
 _LO32 = 0xFFFFFFFF
-_HALF32 = 1 << 31
 
 
 def field_sums(records: torch.Tensor) -> torch.Tensor:
@@ -190,22 +192,16 @@ def barcode_histogram(
     ``max_uniques`` the groups past the table were dropped).
 
     ``bc_len <= 16`` is a caller-verified hint that barcode hi words are zero:
-    only the lo 32 bits group, and a violated hint mis-groups silently.
+    only the lo 32 bits group, and a violated hint mis-groups silently. The
+    barcodes are read in place and grouped by
+    :func:`ibu_tpu_torch.ops.group_sum.group_sum` with unit weights, its
+    passes bounded by 32 key bits under the hint and 64 otherwise.
     """
-    n = records.shape[0]
-    if n == 0:
+    if records.shape[0] == 0:
         return _empty_tables(records, max_uniques)
     if bc_len is None or bc_len > 16:
-        sorted_bc = torch.sort(flip_sign(records[:, 0])).values ^ SIGN_BIT
-    else:
-        # the lo words alone, offset into int32 so that signed order is
-        # unsigned order: a 32-bit sort key instead of a 64-bit one
-        lo = ((records[:, 0] & _LO32) - _HALF32).to(torch.int32)
-        sorted_bc = torch.sort(lo).values.to(torch.int64) + _HALF32
-    starts, ends, num_unique = _group_bounds(_changed([sorted_bc]), max_uniques)
-    counts = ends - starts
-    keys = torch.where(counts > 0, sorted_bc[starts.clamp(max=n - 1)], 0)
-    return keys, counts, num_unique
+        return group_sum([(records[:, 0], None)], max_uniques, key_bits=64)
+    return group_sum([(records[:, 0], None)], max_uniques, key_bits=32, key_mask=_LO32)
 
 
 def barcode_histogram_np(records: np.ndarray) -> dict[int, int]:

@@ -23,11 +23,10 @@ import numpy as np
 import torch
 
 from ibu_tpu_torch.io.mmap import STREAM_BATCH_RECORDS, MmapReader
+from ibu_tpu_torch.ops.group_sum import group_sum
 from ibu_tpu_torch.ops.stats import (
     _changed,
     _group_bounds,
-    _lex_order,
-    _prefix,
     barcode_histogram,
     field_sums,
     group_sum_np,
@@ -235,7 +234,8 @@ def bc16_hint(raw: np.ndarray) -> bool:
 def _masked_histogram(records: torch.Tensor, max_uniques: int, bc16: bool = False):
     """One batch's histogram: ``(keys, counts, n_distinct)``, tables of
     ``max_uniques`` and the batch's true distinct count. ``bc16=True``
-    (caller-verified: all barcodes < 2^32) sorts 32-bit keys."""
+    (caller-verified: all barcodes < 2^32) bounds the key at 32 bits: half
+    the sort passes of a 64-bit one."""
     return barcode_histogram(records, max_uniques, bc_len=16 if bc16 else None)
 
 
@@ -273,43 +273,6 @@ def _decode_seen(seen: int, context: str) -> int:
             "re-sort the file or rerun without assuming sorted input"
         )
     return seen
-
-
-def _sparse_group_sum(keys: torch.Tensor, weights: torch.Tensor, capacity: int):
-    """Group-by-key weight sums of sparse ``(u64 key, weight)`` entries:
-    ``(keys, counts, n_distinct)``, the first ``n_distinct`` of the
-    ``capacity`` slots holding the distinct valid keys in ascending unsigned
-    order with their sums; groups past ``capacity`` are dropped (callers
-    guard with ``n_distinct``).
-
-    A weight of 0 marks an empty entry. Validity leads the sort key, so every
-    valid group comes before the empties whatever its key: no key value is a
-    sentinel, and barcode 0 never merges with an empty slot.
-    """
-    invalid = weights == 0
-    perm = _lex_order([invalid.to(torch.int64), keys], [32, 64])
-    keys, weights, invalid = keys[perm], weights[perm], invalid[perm]
-    first = _changed([invalid]) | (_changed([keys]) & ~invalid)
-    starts, ends, _ = _group_bounds(first, capacity)
-    sums = _prefix(weights)
-    counts = sums[ends] - sums[starts]
-    out = torch.where(counts > 0, keys[starts.clamp(max=keys.shape[0] - 1)], 0)
-    return out, counts, (first & ~invalid).sum()
-
-
-def _sparse_group_sum_spill(
-    keys: torch.Tensor, weights: torch.Tensor, capacity: int, ovf_cap: int
-):
-    """:func:`_sparse_group_sum` with an overflow lane instead of drops: the
-    first ``capacity`` distinct keys (the smallest) form the table, the next
-    ``ovf_cap`` the overflow lane for the host to absorb. Exact whenever
-    ``ovf_cap`` is at least the number of entries past the table, which the
-    caller guarantees. Returns ``(keys, counts, n_distinct, ovf_keys,
-    ovf_counts, ovf_n)`` with ``ovf_n`` the live overflow slots."""
-    out, counts, n_distinct = _sparse_group_sum(keys, weights, capacity + ovf_cap)
-    ovf_n = (n_distinct - capacity).clamp(min=0)
-    return (out[:capacity], counts[:capacity], n_distinct,
-            out[capacity:], counts[capacity:], ovf_n)
 
 
 def _shard_overflow(seen: int, cap: int) -> ValueError:
@@ -374,14 +337,19 @@ class DeviceHistogram:
     Where :func:`sharded_barcode_histogram` fetches each batch's result, this
     keeps the running ``barcode → count`` table on the device:
 
-    1. per batch, the batch's histogram (sort + segments, or the sorted fast
-       path) is written into one row of a staging buffer;
-    2. every ``merge_every`` batches, the staged entries and the table are
-       group-summed by key into the new table (:func:`_sparse_group_sum`);
+    1. per batch, the batch's histogram (:func:`_masked_histogram`, or the
+       sorted fast path) is staged as it was returned;
+    2. every ``merge_every`` batches, the table and the staged tables are
+       group-summed by key into the new table
+       (:func:`ibu_tpu_torch.ops.group_sum.group_sum`, each read in place, a
+       count of 0 marking an empty entry);
     3. :meth:`finalize` flushes the stage and fetches the table once.
 
-    Table and staging have static sizes, and nothing in :meth:`update_placed`
-    waits on the device. Capacity overflow (more than ``capacity`` distinct
+    The table and each staged batch table have static sizes, and nothing in
+    :meth:`update_placed` waits on the device: the merge's passes are bounded
+    by what the host knows (32 or 64 key bits, the bit length of the records
+    counted so far), and the card skips those the data leaves empty.
+    Capacity overflow (more than ``capacity`` distinct
     barcodes): with ``spill=True`` each merge routes the groups past the
     table (the largest keys) to an overflow lane, which the next merge (or
     :meth:`finalize`) drains to a host dict after waiting for that merge
@@ -409,7 +377,13 @@ class DeviceHistogram:
         self.spill = spill
         #: input claimed sorted: batches skip their sort and verify order
         self.assume_sorted = assume_sorted
-        self._filled = 0  # staged batches since the last merge
+        #: the batch tables ``(keys, counts)`` staged since the last merge
+        self._stage: list[tuple[torch.Tensor, torch.Tensor]] = []
+        #: what bounds the merge's key on the host: the widest key a staged
+        #: batch may hold (32 bits while every batch took the 32-bit key),
+        #: and the records counted so far, which bound every count
+        self._key_bits = 32
+        self._records = 0
         self._spilled: dict[int, int] = {}  # host-absorbed overflow
         self._pending = None  # the last merge's overflow lane, not drained
 
@@ -421,20 +395,20 @@ class DeviceHistogram:
             "cnt": zeros(capacity),
             "n": zeros(),  # most distinct barcodes a merge saw
             "shard_seen": zeros(),  # max over batches of n_seen
-            "st_keys": zeros(merge_every, max_uniques_per_shard),
-            "st_cnt": zeros(merge_every, max_uniques_per_shard),
         }
 
     def resume(self, state: dict) -> None:
         """Continue from a table state ``{keys, cnt, n, shard_seen}`` (e.g.
         :func:`ibu_tpu_torch.ops.u64.histogram_state_from_jax`) of the same
         capacity, before any batch is staged."""
-        if self._filled or state["keys"].shape != (self.capacity,):
+        if self._stage or state["keys"].shape != (self.capacity,):
             raise ValueError(
                 f"resume needs an empty stage and a table of capacity={self.capacity}"
             )
         for k in ("keys", "cnt", "n", "shard_seen"):
             self._state[k].copy_(state[k])
+        # the table's keys and counts are not known on the host
+        self._key_bits, self._records = 64, U64_MASK
 
     def update(self, batch: np.ndarray) -> None:
         """Fold one structured host batch; batches whose barcodes provably
@@ -448,34 +422,35 @@ class DeviceHistogram:
         with trace.span("hist.update"):
             hist = _masked_histogram_sorted if self.assume_sorted else _masked_histogram
             keys, counts, seen = hist(records, self.max_uniques_per_shard, bc16)
+            self._stage.append((keys, counts))
+            self._records += records.shape[0]
+            if self.assume_sorted or not bc16:  # the sorted path keeps both words
+                self._key_bits = 64
             st = self._state
-            st["st_keys"][self._filled] = keys
-            st["st_cnt"][self._filled] = counts
             torch.maximum(st["shard_seen"], seen, out=st["shard_seen"])
-            self._filled += 1
-            if self._filled >= self.merge_every:
+            if len(self._stage) >= self.merge_every:
                 self._run_merge()
 
     def _run_merge(self) -> None:
         with trace.span("hist.merge"):
             st = self._state
-            keys = torch.cat([st["keys"], st["st_keys"].reshape(-1)])
-            cnt = torch.cat([st["cnt"], st["st_cnt"].reshape(-1)])
+            parts = [(st["keys"], st["cnt"]), *self._stage]
+            bits = dict(key_bits=self._key_bits, count_bits=min(self._records.bit_length(), 64))
             if self.spill:
                 # drain the previous cycle's overflow first: that merge has had
                 # merge_every batches of device work to finish
                 self._drain_pending()
                 # the lane holds every staged entry, so it never drops a group
                 lane = self.merge_every * self.max_uniques_per_shard
-                st["keys"], st["cnt"], n_distinct, o_keys, o_cnt, ovf_n = (
-                    _sparse_group_sum_spill(keys, cnt, self.capacity, lane)
-                )
-                self._pending = (_fetch_async(ovf_n), o_keys, o_cnt)
+                keys, cnt, n_distinct = group_sum(parts, self.capacity + lane, **bits)
+                ovf_n = (n_distinct - self.capacity).clamp(min=0)
+                self._pending = (_fetch_async(ovf_n), keys[self.capacity:], cnt[self.capacity:])
+                keys, cnt = keys[:self.capacity], cnt[:self.capacity]
             else:
-                st["keys"], st["cnt"], n_distinct = _sparse_group_sum(keys, cnt, self.capacity)
+                keys, cnt, n_distinct = group_sum(parts, self.capacity, **bits)
+            st["keys"], st["cnt"] = keys, cnt
             torch.maximum(st["n"], n_distinct, out=st["n"])
-            st["st_cnt"].zero_()  # a zero count marks an empty staged entry
-            self._filled = 0
+            self._stage = []
 
     def _drain_pending(self) -> None:
         if self._pending is None:
@@ -526,7 +501,7 @@ class DeviceHistogram:
     def _local_table(self):
         """This rank's ``(n_seen, n, keys, counts)``: the flushed table's
         live entries, keys as int64 bits."""
-        if self._filled:
+        if self._stage:
             self._run_merge()
         self._drain_pending()
         st = {k: to_host(self._state[k]) for k in ("keys", "cnt", "n", "shard_seen")}

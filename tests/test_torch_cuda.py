@@ -1,6 +1,6 @@
-"""The CUDA codec kernels, the record sort, the codec labs' and the sort lab's
-kernels against their plain torch versions, and the histogram engines and validation matrix,
-on the card.
+"""The CUDA codec kernels, the record sort, the histogram engine's group-by,
+the codec labs' and the sort lab's kernels against their plain torch
+versions, and the histogram engines and validation matrix, on the card.
 
 Every test here is marked ``cuda`` and skips where no CUDA card is present.
 The file imports no jax, so on a machine with a card it runs alone:
@@ -22,11 +22,13 @@ from ibu_tpu_torch.labs import kernel_lab, sol_lab, sort_lab
 from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import codec as TC
 from ibu_tpu_torch.ops import codec_cuda as K
+from ibu_tpu_torch.ops import group_sum as GS
 from ibu_tpu_torch.ops import sort_cuda as SC
 from ibu_tpu_torch.ops import stats as TS
 from ibu_tpu_torch.ops.u64 import records_to_tensor
 from ibu_tpu_torch.parallel import device as TD
 from ibu_tpu_torch.utils import trace
+from tests import group_cases as GC
 
 pytestmark = pytest.mark.cuda
 
@@ -973,3 +975,110 @@ def test_record_sort_adds_no_wait(card):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(unchecked.cpu(), want) and torch.equal(unhinted.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the histogram engine's group-by (ibu_tpu_torch/ops/group_sum.py,
+# csrc/record_sort.cu)
+# ---------------------------------------------------------------------------
+
+CPU = torch.device("cpu")
+GROUP_CASES = [("batch", c) for c in GC.BATCH_CASES] + [("merge", c) for c in GC.MERGE_CASES]
+
+
+def assert_same(got, *wants):
+    torch.cuda.synchronize()
+    got = [t.cpu() for t in got]
+    for want in wants:
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(got, want))
+
+
+def assert_batch_matches(records: torch.Tensor, cap: int, bc16: bool) -> None:
+    """The kernels, over the batch's barcode column in place, at the hint's
+    bound and at 64 bits, against the plain version and the parent's
+    chain on the card."""
+    t = records.to("cuda")
+    bc_len = 16 if bc16 else None
+    plain = TS.barcode_histogram(records, cap, bc_len=bc_len)
+    assert_same(TS.barcode_histogram(t, cap, bc_len=bc_len), plain,
+                GC.legacy_barcode_histogram(t, cap, bc16))
+    wide = GS.group_sum([(t[:, 0], None)], cap, key_bits=64,
+                        key_mask=0xFFFFFFFF if bc16 else GS.U64_MASK)
+    assert_same(wide, plain)
+
+
+@pytest.mark.parametrize("kind,case", GROUP_CASES)
+def test_group_sum_kernels_match_plain(card, kind, case):
+    if kind == "batch":
+        make, cap, bc16 = GC.BATCH_CASES[case]
+        assert_batch_matches(torch.from_numpy(make()), cap, bc16)
+        return
+    make, cap, lane = GC.MERGE_CASES[case]
+    parts = make()
+    plain = GC.merged(parts, cap, lane, CPU)
+    # the host's bound, and the widest one (three key words, two or one live)
+    for bits in ({}, {"key_bits": 64, "count_bits": 64}):
+        assert_same(GC.merged(parts, cap, lane, card, **bits), plain,
+                    GC.legacy_merged(parts, cap, lane, card))
+
+
+def test_group_sum_on_the_benchmark_batches(card):
+    """A 2^20-record Drop-seq batch (24-bit keys under the 32-bit hint) and
+    the merge of its table with a full one, exactly as the plain version."""
+    records = torch.from_numpy(dropseq_batch(1 << 20, 2**31 + 99).view(np.int64).reshape(-1, 3))
+    assert_batch_matches(records, 1 << 17, True)
+    assert_batch_matches(records, 1 << 17, False)
+    keys, counts, _ = TS.barcode_histogram(records, 1 << 17, bc_len=16)
+    parts = [(keys.numpy(), counts.numpy())] * 3
+    assert_same(GC.merged(parts, 1 << 17, 2 << 17, card), GC.merged(parts, 1 << 17, 2 << 17, CPU))
+
+
+def test_group_sum_launch_failure_and_counter(card, monkeypatch):
+    monkeypatch.setattr(GS.group_sum, "launches", 0)
+    k = torch.arange(5000, device=card)
+    GS.group_sum([(k, None)], 8)
+    torch.cuda.synchronize()
+    assert GS.group_sum.launches == 1
+    monkeypatch.setattr(GS, "_joined", list)  # more parts than the library takes
+    with pytest.raises(RuntimeError, match="group_sum kernel launch failed"):
+        GS.group_sum([(k, k)] * (GS.MAX_PARTS + 1), 8)
+
+
+def splitseq_batches(n: int, batch: int, seed: int) -> list[np.ndarray]:
+    """``n`` SPLiT-seq reads (24-base barcodes: 48-bit keys) as records, in
+    batches of ``batch``."""
+    import json
+    from pathlib import Path
+
+    from portbench.traffic import generate
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "portbench" / "configs" / "splitseq.json").read_text())
+    small = {"reads": n, "cells": 3000, "ambient_barcodes": 30_000}
+    records = generate.structured(generate.sample({**cfg, **small}, n, seed))
+    return [records[i:i + batch] for i in range(0, n, batch)]
+
+
+def test_device_histogram_spills_a_splitseq_stream(card):
+    """A SPLiT-seq-shaped stream over a table of 8192 slots: the spill lane
+    carries the rest, and the result equals the numpy reference; the
+    ``hist_sort_passes`` counter holds each call's launched passes."""
+    from portbench.reference import plain
+
+    batches = splitseq_batches(600_000, 1 << 16, 2**31 + 2020)
+    records = np.concatenate(batches)
+    h = TD.DeviceHistogram(capacity=8192, max_uniques_per_shard=1 << 15, merge_every=4,
+                           device=card)
+    trace.session()  # ends any earlier session
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = h.run(iter(batches))
+    spans = trace.session()
+    keys, counts = plain.counts(records["barcode"])
+    assert got == dict(zip(keys.tolist(), counts.tolist()))
+    assert h._spilled and len(keys) > 8192
+    want, folded = 8 * len(batches), 0
+    for i, b in enumerate(batches):
+        folded += len(b)
+        if (i + 1) % 4 == 0 or i + 1 == len(batches):
+            want += GS.plan(64, folded.bit_length(), True)[1]
+    assert sum(s.counters.get("hist_sort_passes", 0) for s in spans) == want
