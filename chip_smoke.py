@@ -24,16 +24,18 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 5. run the validation matrix (:func:`ibu_tpu_torch.validate.run_matrix`) on
    the card: 27 of 27 checks, named as in ``TPU_VALIDATE.json``. All four
    kernels' launch counters are zeroed just before it and must be positive
-   after it; the record sort's must count its two sorts;
+   after it; the record sort's must count its four sorts (the device and the
+   hinted sort, the molecule and the pair molecule counts);
 6. drive the histogram path at 10M bc16/umi12 records with Zipf-distributed
    barcodes: ``sort_batch`` with the bc16/umi12/32-bit hints (held record
    for record against the plain sort; the record sort's launch counters
    zeroed just before it must count one sort), ``stream_file_histogram`` and
    ``barcode_counts(engine="device")``
-   on the unsorted file and on a sorted copy (the fast path) against the host
+   on the unsorted file and on a sorted copy (its order checked) against the host
    engine and numpy, the spill path and the strict capacity error, a lying
    sorted flag, a gzip stream into ``DeviceHistogram.run``, and the molecule
-   and pair molecule counts of 1M records against their numpy oracles;
+   and pair molecule counts of 1M records against their numpy oracles (the
+   record sort's launch counters zeroed before them must count two sorts);
 7. time each kernel and its plain version at 10M records with CUDA events
    over distinct inputs, and check the two agree at that size; then the
    record sort (``csrc/record_sort.cu``) in each mode of ``SORT_MODES`` at
@@ -82,7 +84,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
     every matrix entry in the planted truth. The codec kernels' launch
     counters are zeroed just before the phase; ``encode_records``' must be
     positive after it, and the record sort's must count two sorts
-    (``encode_sorted_file`` and ``sort_file_device``). Each stage's wall time is printed, the
+    (``encode_sorted_file`` and ``sort_file_device``) before the device count
+    and one a try of each of its batches in it. Each stage's wall time is printed, the
     ``torch.profiler`` device time of one more run of ``correct_file``, and
     ``cProfile``'s heaviest host functions of one more run of it and of
     ``dedup_file``;
@@ -716,6 +719,7 @@ def histogram_path(card, n: int, workdir: Path) -> None:
     m = min(N_MOLECULES, n)
     mrec = make_records(bc[:m], umi[:m], rng.integers(0, GENES, m, dtype=np.uint64))
     dev = records_to_tensor(mrec, card)
+    reset_sort_launches()
     keys, mol, n_uniq = wall(f"molecule_counts {m}", lambda: S.molecule_counts(
         dev, 1 << 16, bc_len=BC_LEN, umi_len=UMI_LEN))
     mol_want = S.molecule_counts_np(mrec)
@@ -726,6 +730,7 @@ def histogram_path(card, n: int, workdir: Path) -> None:
     pair_want = S.pair_molecule_counts_np(mrec)
     require(S.table_dict(keys, counts) == pair_want and int(n_pairs) == len(pair_want),
             "pair_molecule_counts equals numpy")
+    require_sorts("molecule_counts, pair_molecule_counts (phase 6)", 2)
     log(f"histogram path: {len(mol_want)} barcodes with molecules, {len(pair_want)} "
         "(barcode, gene) pairs")
 
@@ -962,7 +967,9 @@ def library_group_sum(parts, n_slots: int, key_mask: int):
     keys = torch.cat([k for k, _ in parts])
     weights = torch.cat([w for _, w in parts])
     invalid = weights == 0
-    perm = S._lex_order([invalid.to(torch.int64), keys], [32, 64])
+    # a stable two-key argsort: validity, then the key in unsigned order
+    perm = torch.sort(flip_sign(keys), stable=True).indices
+    perm = perm[torch.sort(invalid[perm].to(torch.int64), stable=True).indices]
     keys, weights, invalid = keys[perm], weights[perm], invalid[perm]
     first = S._changed([invalid]) | (S._changed([keys]) & ~invalid)
     starts, ends, _ = S._group_bounds(first, n_slots)
@@ -1388,9 +1395,11 @@ def workflow_phase(card, reads: int, workdir: Path) -> dict:
             "dedup_file is byte-identical to the numpy statement")
 
     molecules = dstats["molecules"]
+    before_count = read_sort_launches()
     dev = wall(f"workflow count_matrix device {molecules}", lambda: PL.count_matrix(
         mol, str(workdir / "wf_dev"), batch_records=WF_BATCH, engine="device",
         max_pairs=WF_MAX_PAIRS, device=card))
+    count_sorts = {k: v - before_count[k] for k, v in read_sort_launches().items()}
     walls: dict = {}
     host = wall(f"workflow count_matrix host {molecules}", lambda: PL.count_matrix(
         mol, str(workdir / "wf_host"), batch_records=WF_BATCH), walls, "count")
@@ -1409,7 +1418,15 @@ def workflow_phase(card, reads: int, workdir: Path) -> dict:
     launches = read_launches()
     log(f"launches on the workflow path: {launches}")
     require(launches["encode_records"] > 0, "encode_records ran on the workflow path")
-    require_sorts("the workflow (phase 10: encode_sorted_file, sort_file_device)", 2)
+    require_sorts("the workflow (phase 10: encode_sorted_file, sort_file_device)", 2,
+                  before_count)
+    # one pair_molecule_counts a batch, and one more a batch that grew the table
+    batches = -(-molecules // WF_BATCH)
+    SORT_LAUNCHES["count_matrix device (phase 10)"] = count_sorts
+    log(f"record sort launches: count_matrix device (phase 10): {count_sorts}")
+    require(count_sorts["field_ors"] == count_sorts["sort_records"] >= batches,
+            f"count_matrix(engine='device') launched the record sort once a try of each of "
+            f"its {batches} batches: {count_sorts}")
 
     # count_matrix(engine="device") is not run again here to keep the script
     # under 7 minutes: PERF.md holds its device time and host profile
@@ -2566,7 +2583,8 @@ def main() -> int:
         require_sorts("the record path (phase 4: encode_sorted_file)", 1)
         reset_sort_launches()
         launches = matrix_phase(card)
-        require_sorts("the validation matrix (phase 5: device sort, hinted sort)", 2)
+        require_sorts("the validation matrix (phase 5: device sort, hinted sort, "
+                      "molecule_counts, pair_molecule_counts)", 4)
         reset_launches()
         GS.group_sum.launches = 0
         histogram_path(card, N_MAIN, workdir)

@@ -300,8 +300,8 @@ def cmd_histogram(args) -> int:
         elif args.device_table:
             from ibu_tpu_torch.parallel.device import DeviceHistogram
 
-            # sorted inputs (header-claimed, checked on the device) skip the
-            # per-batch sort
+            # sorted inputs (header-claimed) have their order checked on the
+            # device
             hist = DeviceHistogram(
                 capacity=args.device_table,
                 max_uniques_per_shard=args.max_uniques,

@@ -37,6 +37,7 @@ from ibu_tpu_torch.ops.codec_cuda import (
     _check_device,
     _check_tensor,
     _raise_on,
+    _stream,
     torch_pack,
     torch_unpack,
 )
@@ -77,10 +78,6 @@ def _check_records(records: torch.Tensor, widths: tuple[int, ...]) -> None:
     if records.shape[1] not in widths:
         shapes = " or ".join(f"(N, {w})" for w in widths)
         raise ValueError(f"records must be {shapes}, got {tuple(records.shape)}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _encode(kernel, a, b, index, n, mode, layout, cols, block):

@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ibu_tpu_torch.ops import _build
-from ibu_tpu_torch.ops.codec_cuda import _check_device, _check_tensor, _raise_on
+from ibu_tpu_torch.ops.codec_cuda import _check_device, _check_tensor, _raise_on, _stream
 
 ROWS, LANES = 16, 128
 TILE = ROWS * LANES
@@ -73,8 +73,7 @@ def _launch(kernel, entry: str, tiles: int, *tensors: torch.Tensor) -> None:
                          "at a 16-byte boundary")
     lib = _build.load()
     with torch.cuda.device(device):
-        rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors), tiles,
-                                 torch.cuda.current_stream(device).cuda_stream)
+        rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors), tiles, _stream(device))
     _raise_on(rc, kernel.__name__)
     kernel.launches += 1
 

@@ -138,7 +138,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--spill", choices=("on", "off"), default="on",
                     help="the overflow-lane merge (on) or the strict merge (off)")
     ap.add_argument("--sorted", action="store_true",
-                    help="buffers sorted by barcode, assume_sorted=True (no batch sort)")
+                    help="buffers sorted by barcode, assume_sorted=True (order checked)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu: the checks, no timing")
     args = ap.parse_args(argv)
     if args.k[1] <= args.k[0]:

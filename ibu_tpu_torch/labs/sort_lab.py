@@ -24,9 +24,9 @@ composition can never beat its slowest part:
 The yardsticks are ``torch.sort`` of the keys in unsigned order (one key,
 the TPU lab's ``lax.sort`` 1-op) and the three-key lexicographic sort
 ``(x, (x * 40503) & 0xFFFFFF, iota)`` through the port's production route,
-stable sign-flipped passes (:func:`ibu_tpu_torch.ops.stats._lex_order`), in
-place of the TPU lab's ``lax.sort`` 3-op. ``torch.sort`` is a yardstick
-only, never a port of any kernel.
+the record sort (:func:`ibu_tpu_torch.ops.sort_cuda.sort_records`, its three
+hi words dropped), in place of the TPU lab's ``lax.sort`` 3-op. ``torch.sort``
+is a yardstick only, never a port of any kernel.
 
 Keys are made on the device, key ``i`` of seed ``s`` being
 ``((i * 2654435761) ^ (i >> 3) ^ s) mod 2^32``: seed 0 for the checks, seeds
@@ -57,7 +57,7 @@ import torch
 
 from ibu_tpu_torch.labs import _harness as H
 from ibu_tpu_torch.labs import _sort_kernels as K
-from ibu_tpu_torch.ops.stats import _lex_order
+from ibu_tpu_torch.ops import sort_cuda
 from ibu_tpu_torch.utils.device import select_device
 
 DEFAULT_KEYS = 1 << 24
@@ -253,11 +253,12 @@ def sort1(keys: torch.Tensor) -> torch.Tensor:
 
 def sort3(keys: torch.Tensor) -> torch.Tensor:
     """``x`` sorted by ``(x, (x * 40503) & 0xFFFFFF, iota)`` through the
-    production route's stable passes; ``x`` as int64."""
+    production route, the record sort; ``x`` as int64."""
     x = keys.to(torch.int64) & 0xFFFFFFFF
     umi = (x * UMI_MULT) & 0xFFFFFF
     iota = torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
-    return x[_lex_order([x, umi, iota], [32, 24, 32])]
+    rows = torch.stack([x, umi, iota], dim=1)
+    return sort_cuda.sort_records(rows, sort_cuda.Hints((False, False, False)))[:, 0]
 
 
 def bound_bytes(n: int, offs: np.ndarray | None = None) -> dict[str, int]:

@@ -45,6 +45,11 @@ def _check_device(device: torch.device, *tensors: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {device}; expected cpu or cuda")
 
 
+def _stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, which the kernels run on."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _raise_on(rc: int, kernel: str) -> None:
     if rc != 0:
         msg = _build.load().ibu_cuda_error_string(rc).decode()
@@ -156,8 +161,7 @@ def encode_records(
     with torch.cuda.device(device):
         rc = lib.ibu_encode_records(
             bc_rows.data_ptr(), umi_rows.data_ptr(), index.data_ptr(),
-            out.data_ptr(), n, bc_len, umi_len, salt,
-            torch.cuda.current_stream(device).cuda_stream,
+            out.data_ptr(), n, bc_len, umi_len, salt, _stream(device),
         )
     _raise_on(rc, "encode_records")
     encode_records.launches += 1
@@ -194,7 +198,7 @@ def decode_records(
     with torch.cuda.device(device):
         rc = lib.ibu_decode_records(
             records.data_ptr(), bc.data_ptr(), umi.data_ptr(), index.data_ptr(),
-            n, bc_len, umi_len, salt, torch.cuda.current_stream(device).cuda_stream,
+            n, bc_len, umi_len, salt, _stream(device),
         )
     _raise_on(rc, "decode_records")
     decode_records.launches += 1
@@ -227,8 +231,7 @@ def encode_planes(rows: torch.Tensor) -> torch.Tensor:
     lib = _build.load()
     with torch.cuda.device(device):
         rc = lib.ibu_encode_planes(
-            rows.data_ptr(), out.data_ptr(), n, length,
-            torch.cuda.current_stream(device).cuda_stream,
+            rows.data_ptr(), out.data_ptr(), n, length, _stream(device),
         )
     _raise_on(rc, "encode_planes")
     encode_planes.launches += 1
@@ -254,8 +257,7 @@ def decode_planes(words: torch.Tensor, length: int) -> torch.Tensor:
     lib = _build.load()
     with torch.cuda.device(device):
         rc = lib.ibu_decode_planes(
-            words.data_ptr(), rows.data_ptr(), n, length,
-            torch.cuda.current_stream(device).cuda_stream,
+            words.data_ptr(), rows.data_ptr(), n, length, _stream(device),
         )
     _raise_on(rc, "decode_planes")
     decode_planes.launches += 1

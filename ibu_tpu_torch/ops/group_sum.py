@@ -34,7 +34,7 @@ import torch
 
 from ibu_tpu_torch.ops import _build
 from ibu_tpu_torch.ops import sort_cuda as SC
-from ibu_tpu_torch.ops.codec_cuda import _check_device, _raise_on
+from ibu_tpu_torch.ops.codec_cuda import _check_device, _raise_on, _stream
 from ibu_tpu_torch.ops.u64 import U64_MASK, to_signed
 from ibu_tpu_torch.utils import trace
 
@@ -46,10 +46,11 @@ _ALL = (True, True, True)
 
 
 def plan(key_bits: int, count_bits: int, weighted: bool) -> tuple[int, int]:
-    """``(key words, 8-bit passes)`` of the bound a call launches to: the
-    key's bits, and where weighted the weight's bits and the validity bit."""
-    bits = key_bits + (count_bits + 1 if weighted else 0)
-    return max(1, -(-bits // 64)), -(-bits // 8)
+    """``(key words, 8-bit passes)`` of the bound a call launches to
+    (:func:`ibu_tpu_torch.ops.sort_cuda.plan`, at least one word): the key's
+    bits, and where weighted the weight's bits and the validity bit."""
+    words, passes = SC.plan((key_bits, count_bits + 1 if weighted else 0))
+    return max(1, words), passes
 
 
 def _check_parts(parts) -> tuple[torch.device, bool]:
@@ -108,10 +109,6 @@ def plain_group_sum(parts, n_slots: int, key_mask: int = U64_MASK):
     out_keys[group[first]] = keys[first]
     out_sums.index_add_(0, group[kept], weights[kept])
     return out_keys, out_sums, starts.sum()
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _joined(parts) -> list:

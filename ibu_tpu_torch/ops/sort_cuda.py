@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from ibu_tpu_torch.ops import _build
-from ibu_tpu_torch.ops.codec_cuda import _check_device, _check_tensor, _raise_on
+from ibu_tpu_torch.ops.codec_cuda import _check_device, _check_tensor, _raise_on, _stream
 from ibu_tpu_torch.ops.u64 import U64_MASK, flip_sign, to_signed
 
 _LO32 = 0xFFFFFFFF
@@ -183,10 +183,6 @@ def plain_sort_records(records: torch.Tensor, hi_used, ors: torch.Tensor | None 
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def field_ors(records: torch.Tensor) -> torch.Tensor:

@@ -12,11 +12,13 @@ The aggregations (:func:`barcode_histogram`, :func:`molecule_counts`,
 tables padded to a capacity with the tail zeroed, plus the true distinct
 count, which exceeds the capacity on overflow (the caller checks). The
 barcode histogram is the histogram engine's group-by
-(:mod:`ibu_tpu_torch.ops.group_sum`). In the molecule counts, groups come
-from one sort, boundary flags and a cumsum; each table slot finds its group's
-bounds by ``searchsorted``, so no record-sized scatter runs and nothing waits
-on the device. The numpy oracles are copies of the JAX package's (which
-cannot be imported here: that module loads jax).
+(:mod:`ibu_tpu_torch.ops.group_sum`). The molecule counts sort their rows
+with the record sort, unchecked, and segment the sorted rows with boundary
+flags and a cumsum; each table slot finds its group's bounds by
+``searchsorted`` (a pair key takes two words, and the group-by takes one), so
+no record-sized scatter runs and nothing waits on the device. The numpy
+oracles are copies of the JAX package's (which cannot be imported here: that
+module loads jax).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from ibu_tpu_torch.ops import sort_cuda
 from ibu_tpu_torch.ops.group_sum import group_sum
-from ibu_tpu_torch.ops.u64 import U64_MASK, flip_sign
+from ibu_tpu_torch.ops.u64 import U64_MASK
 from ibu_tpu_torch.utils import trace
 
 _FIELDS = ("barcode", "umi", "index")
@@ -50,36 +52,6 @@ def checksum_records_np(records: np.ndarray) -> tuple[int, int, int]:
         int(records[f].sum(dtype=object)) & U64_MASK
         for f in ("barcode", "umi", "index")
     )
-
-
-def _lex_order(cols: list[torch.Tensor], widths: list[int]) -> torch.Tensor:
-    """Permutation sorting rows by ``cols`` (most significant first) in
-    unsigned order. A column of width 32 holds values below 2^32; neighbouring
-    columns are packed into one int64 key while they fit (bc16 + umi12 is one
-    key, not two). Each key is sign flipped and sorted by a stable argsort,
-    last key first."""
-    keys: list[torch.Tensor] = []
-    key, bits = None, 0
-    for col, width in zip(cols, widths):
-        if key is not None and bits + width <= 64:
-            key, bits = (key << width) | col, bits + width
-        else:
-            if key is not None:
-                keys.append(key)
-            key, bits = col, width
-    keys.append(key)
-    perm = None
-    for key in reversed(keys):
-        k = key if perm is None else key[perm]
-        order = torch.sort(flip_sign(k), stable=True).indices
-        perm = order if perm is None else perm[order]
-    return perm
-
-
-def _hinted(col: torch.Tensor, hi_used: bool) -> tuple[torch.Tensor, int]:
-    """A field and its key width: the lo 32 bits alone when a hint says the
-    hi word is zero (as in the JAX package, a violated hint is not seen)."""
-    return (col, 64) if hi_used else (col & _LO32, 32)
 
 
 def _sort_impl(records: torch.Tensor, hi_used: sort_cuda.Hints) -> torch.Tensor:
@@ -137,9 +109,7 @@ def sort_records(
             )
         hints = sort_cuda.Hints(hi_used, ors, sort_cuda.key_widths(seen, hi_used))
     if records.is_cuda:
-        widths = sort_cuda.launch_widths(hints)
-        trace.count("sort_key_bits", sum(widths))
-        trace.count("sort_passes", sort_cuda.plan(widths)[1])
+        trace.count("sort_passes", sort_cuda.plan(sort_cuda.launch_widths(hints))[1])
     return _sort_impl(records, hints)
 
 
@@ -222,10 +192,10 @@ def molecule_counts(
     n = records.shape[0]
     if n == 0:
         return _empty_tables(records, max_uniques)
-    bc, bc_w = _hinted(records[:, 0], bc_len is None or bc_len > 16)
-    umi, umi_w = _hinted(records[:, 1], umi_len is None or umi_len > 16)
-    perm = _lex_order([bc, umi], [bc_w, umi_w])
-    bc, umi = bc[perm], umi[perm]
+    rows = torch.nn.functional.pad(records[:, :2], (0, 1))  # (barcode, umi, 0)
+    rows = _sort_impl(rows, (bc_len is None or bc_len > 16, umi_len is None or umi_len > 16,
+                             False))
+    bc, umi = rows[:, 0], rows[:, 1]
     bc_first = _changed([bc])
     starts, ends, num_unique = _group_bounds(bc_first, max_uniques)
     pairs = _prefix(bc_first | _changed([umi]))
@@ -259,11 +229,13 @@ def pair_molecule_counts(
     n = records.shape[0]
     if n == 0:
         return _empty_tables(records, max_pairs, (2,))
-    bc, bc_w = _hinted(records[:, 0], bc_len is None or bc_len > 16)
-    umi, umi_w = _hinted(records[:, 1], umi_len is None or umi_len > 16)
-    idx, idx_w = _hinted(records[:, 2], index_bits is None or index_bits > 32)
-    perm = _lex_order([bc, idx, umi], [bc_w, idx_w, umi_w])
-    bc, idx, umi = bc[perm], idx[perm], umi[perm]
+    rows = torch.stack([records[:, 0], records[:, 2], records[:, 1]], dim=1)
+    rows = _sort_impl(rows, (
+        bc_len is None or bc_len > 16,
+        index_bits is None or index_bits > 32,
+        umi_len is None or umi_len > 16,
+    ))
+    bc, idx, umi = rows[:, 0], rows[:, 1], rows[:, 2]
     pair_first = _changed([bc, idx])
     starts, ends, num_pairs = _group_bounds(pair_first, max_pairs)
     triples = _prefix(pair_first | _changed([umi]))

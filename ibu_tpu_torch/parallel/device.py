@@ -24,13 +24,7 @@ import torch
 
 from ibu_tpu_torch.io.mmap import STREAM_BATCH_RECORDS, MmapReader
 from ibu_tpu_torch.ops.group_sum import group_sum
-from ibu_tpu_torch.ops.stats import (
-    _changed,
-    _group_bounds,
-    barcode_histogram,
-    field_sums,
-    group_sum_np,
-)
+from ibu_tpu_torch.ops.stats import barcode_histogram, field_sums, group_sum_np
 from ibu_tpu_torch.ops.u64 import (
     U64_MASK,
     flip_sign,
@@ -239,28 +233,20 @@ def _masked_histogram(records: torch.Tensor, max_uniques: int, bc16: bool = Fals
     return barcode_histogram(records, max_uniques, bc_len=16 if bc16 else None)
 
 
-#: bit 30 of a batch's ``n_seen`` carries the sorted path's order verdict
+#: bit 30 of a batch's ``n_seen`` carries the sorted input's order verdict
 #: (kept positive, so the max-combined ``shard_seen`` propagates it)
 _ORDER_BAD_BIT = 1 << 30
 
 
 def _masked_histogram_sorted(records: torch.Tensor, max_uniques: int, bc16: bool = False):
-    """One SORTED batch's histogram, with no sort: equal barcodes are
-    adjacent, so groups come from one adjacent difference. Order is verified
-    on the device, not assumed: a decrease anywhere in the batch (in unsigned
-    order) sets :data:`_ORDER_BAD_BIT` in the returned ``n_seen``, and
-    :func:`_decode_seen` raises on it. A decrease between batches is harmless
-    (merging is by key). ``bc16`` is accepted for the JAX signature and
-    ignored: an int64 compare covers both words at once."""
-    n = records.shape[0]
-    if n == 0:
-        return barcode_histogram(records, max_uniques)
-    bc = records[:, 0]
-    starts, ends, n_distinct = _group_bounds(_changed([bc]), max_uniques)
-    counts = ends - starts
-    keys = torch.where(counts > 0, bc[starts.clamp(max=n - 1)], 0)
-    bad = (flip_sign(bc[1:]) < flip_sign(bc[:-1])).any()
-    return keys, counts, n_distinct + bad * _ORDER_BAD_BIT
+    """One batch of input claimed SORTED: :func:`_masked_histogram`, with its
+    order verified on the device, not assumed: a decrease anywhere in the
+    batch (in unsigned order) sets :data:`_ORDER_BAD_BIT` in the returned
+    ``n_seen``, and :func:`_decode_seen` raises on it. A decrease between
+    batches is harmless (merging is by key)."""
+    keys, counts, n_distinct = _masked_histogram(records, max_uniques, bc16)
+    bc = flip_sign(records[:, 0])
+    return keys, counts, n_distinct + (bc[1:] < bc[:-1]).any() * _ORDER_BAD_BIT
 
 
 def _decode_seen(seen: int, context: str) -> int:
@@ -296,8 +282,8 @@ def sharded_barcode_histogram(
     device, and the sparse results merge on the host (unbounded key space,
     one device→host fetch per batch).
 
-    ``sorted_in=True`` (input known sorted, e.g. a header flag) skips the
-    per-batch sort; order is verified on the device and a lying flag raises.
+    ``sorted_in=True`` (input claimed sorted, e.g. a header flag) verifies
+    each batch's order on the device, and a lying flag raises.
     A batch with more than ``max_uniques_per_shard`` distinct barcodes raises
     ``ValueError`` (its counts would be dropped).
     """
@@ -337,8 +323,9 @@ class DeviceHistogram:
     Where :func:`sharded_barcode_histogram` fetches each batch's result, this
     keeps the running ``barcode → count`` table on the device:
 
-    1. per batch, the batch's histogram (:func:`_masked_histogram`, or the
-       sorted fast path) is staged as it was returned;
+    1. per batch, the batch's histogram (:func:`_masked_histogram`; with
+       ``assume_sorted``, its order checked too) is staged as it was
+       returned;
     2. every ``merge_every`` batches, the table and the staged tables are
        group-summed by key into the new table
        (:func:`ibu_tpu_torch.ops.group_sum.group_sum`, each read in place, a
@@ -375,7 +362,7 @@ class DeviceHistogram:
         self.max_uniques_per_shard = max_uniques_per_shard
         self.merge_every = merge_every
         self.spill = spill
-        #: input claimed sorted: batches skip their sort and verify order
+        #: input claimed sorted: each batch's order is verified
         self.assume_sorted = assume_sorted
         #: the batch tables ``(keys, counts)`` staged since the last merge
         self._stage: list[tuple[torch.Tensor, torch.Tensor]] = []
@@ -424,7 +411,7 @@ class DeviceHistogram:
             keys, counts, seen = hist(records, self.max_uniques_per_shard, bc16)
             self._stage.append((keys, counts))
             self._records += records.shape[0]
-            if self.assume_sorted or not bc16:  # the sorted path keeps both words
+            if not bc16:
                 self._key_bits = 64
             st = self._state
             torch.maximum(st["shard_seen"], seen, out=st["shard_seen"])
@@ -558,8 +545,8 @@ def stream_file_histogram(
 ) -> dict[int, int]:
     """Per-barcode counts of a whole file, streamed to the device with
     prefetch into a :class:`DeviceHistogram`. ``assume_sorted=None`` trusts
-    the header's sorted flag: sorted files skip the per-batch sort, and a
-    lying flag raises rather than miscounting."""
+    the header's sorted flag: each batch of a sorted file has its order
+    verified, and a lying flag raises rather than miscounting."""
     from ibu_tpu_torch.io.stream import stream_file
 
     with trace.span("ibu.stream_file_histogram"):

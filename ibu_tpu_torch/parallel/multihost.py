@@ -327,8 +327,8 @@ def multihost_barcode_histogram(
     :meth:`~ibu_tpu_torch.parallel.device.DeviceHistogram.finalize` merges
     the ranks' tables and spilled counts, so every rank returns the same
     dict. Barcode spaces larger than ``capacity`` spill exactly to the host
-    (``spill``). Sorted files take the no-sort fast path: the flag is read
-    from the same header bytes on every rank and verified on the card.
+    (``spill``). A sorted file's flag is read from the same header bytes on
+    every rank and verified on the card.
     """
     from ibu_tpu_torch.parallel.device import DeviceHistogram
 

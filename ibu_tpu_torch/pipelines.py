@@ -1211,8 +1211,8 @@ def barcode_counts(
     """Per-barcode read counts of a whole file: ``(barcodes, counts)``,
     uint64 and int64, by ascending barcode. ``"host"`` streams ``np.unique``
     per mmap batch; ``"device"`` runs
-    :func:`ibu_tpu_torch.parallel.device.sharded_barcode_histogram`, taking
-    the sorted fast path when the header says the file is sorted."""
+    :func:`ibu_tpu_torch.parallel.device.sharded_barcode_histogram`, which
+    verifies each batch's order when the header says the file is sorted."""
     _require_plain(in_path, "barcode_counts")
     reader = MmapReader(in_path)
     from ibu_tpu_torch.parallel.device import (

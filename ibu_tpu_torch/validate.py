@@ -166,7 +166,7 @@ def run_matrix(progress=None, device: str | torch.device | None = None) -> list[
     want = barcode_histogram_np(hrec)
     check("device histogram", table_dict(keys, counts) == want and int(n_uniq) == len(want))
 
-    # sorted-input fast path: no per-batch sort, order verified on the device
+    # sorted-input path: the order verified on the device
     srec = np.sort(hrec, order=("barcode", "umi", "index"))
     hfast = DeviceHistogram(capacity=1024, max_uniques_per_shard=1024, assume_sorted=True, device=device)
     check("sorted histogram fast path", hfast.run(iter([srec])) == want)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ibu_tpu_torch.ops.group_sum import group_sum
-from ibu_tpu_torch.ops.stats import _changed, _group_bounds, _lex_order, _prefix
+from ibu_tpu_torch.ops.stats import _changed, _group_bounds, _prefix
 from ibu_tpu_torch.ops.u64 import SIGN_BIT, flip_sign
 
 U64_MAX = (1 << 64) - 1
@@ -158,6 +158,13 @@ def merged(parts, capacity: int, lane: int, device, **bits):
 # ---------------------------------------------------------------------------
 
 
+def stable_argsort2(major: torch.Tensor, minor: torch.Tensor) -> torch.Tensor:
+    """The permutation sorting rows by ``(major, minor)`` in unsigned order:
+    stable argsorts of the sign-flipped keys, the minor key first."""
+    perm = torch.sort(flip_sign(minor), stable=True).indices
+    return perm[torch.sort(flip_sign(major[perm]), stable=True).indices]
+
+
 def legacy_barcode_histogram(records: torch.Tensor, max_uniques: int, bc16: bool):
     n = records.shape[0]
     if not bc16:
@@ -173,7 +180,7 @@ def legacy_barcode_histogram(records: torch.Tensor, max_uniques: int, bc16: bool
 
 def legacy_sparse_group_sum(keys: torch.Tensor, weights: torch.Tensor, capacity: int):
     invalid = weights == 0
-    perm = _lex_order([invalid.to(torch.int64), keys], [32, 64])
+    perm = stable_argsort2(invalid.to(torch.int64), keys)
     keys, weights, invalid = keys[perm], weights[perm], invalid[perm]
     first = _changed([invalid]) | (_changed([keys]) & ~invalid)
     starts, ends, _ = _group_bounds(first, capacity)

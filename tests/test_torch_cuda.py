@@ -958,8 +958,8 @@ def test_sort_batch_launches_the_record_sort_and_counts_its_passes(card, monkeyp
     spans = trace.session()
     assert SC.sort_records.launches == 1
     assert got.tobytes() == np.sort(records, order=("barcode", "umi", "index")).tobytes()
-    counted = {k: sum(s.counters.get(k, 0) for s in spans) for k in ("sort_passes", "sort_key_bits")}
-    assert counted == {"sort_passes": 7, "sort_key_bits": 56}
+    counted = {k: sum(s.counters.get(k, 0) for s in spans) for k in ("sort_passes",)}
+    assert counted == {"sort_passes": 7}
 
 
 def test_record_sort_adds_no_wait(card):
@@ -975,6 +975,31 @@ def test_record_sort_adds_no_wait(card):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(unchecked.cpu(), want) and torch.equal(unhinted.cpu(), want)
+
+
+@pytest.mark.parametrize("hinted", [False, True])
+def test_molecule_counts_launch_the_record_sort_once_and_never_wait(card, monkeypatch, hinted):
+    """The molecule counts and the pair counts each sort their rows with one
+    record sort, never wait on the card, and equal their numpy oracles."""
+    records = dropseq_batch(1 << 18, 2**31 + 21)
+    t = records_to_tensor(records, card)
+    mol_kw = {"bc_len": 12, "umi_len": 8} if hinted else {}
+    pair_kw = {**mol_kw, "index_bits": 32} if hinted else {}
+    TS.molecule_counts(t, 1 << 17, **mol_kw)  # builds the library
+    torch.cuda.synchronize()
+    monkeypatch.setattr(SC.sort_records, "launches", 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mol = TS.molecule_counts(t, 1 << 17, **mol_kw)
+        launches = [SC.sort_records.launches]
+        pair = TS.pair_molecule_counts(t, 1 << 18, **pair_kw)
+        launches.append(SC.sort_records.launches)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert launches == [1, 2]
+    want_mol, want_pair = TS.molecule_counts_np(records), TS.pair_molecule_counts_np(records)
+    assert TS.table_dict(*mol[:2]) == want_mol and int(mol[2]) == len(want_mol)
+    assert TS.table_dict(*pair[:2]) == want_pair and int(pair[2]) == len(want_pair)
 
 
 # ---------------------------------------------------------------------------
@@ -1082,3 +1107,30 @@ def test_device_histogram_spills_a_splitseq_stream(card):
         if (i + 1) % 4 == 0 or i + 1 == len(batches):
             want += GS.plan(64, folded.bit_length(), True)[1]
     assert sum(s.counters.get("hist_sort_passes", 0) for s in spans) == want
+
+
+@pytest.mark.parametrize("config", ["dropseq", "splitseq"])
+def test_sorted_device_histogram_stream_equals_the_unsorted_one(card, tmp_path, monkeypatch,
+                                                                config):
+    """A file whose header says sorted streams through the order-checked
+    batches to the counts of its unsorted copy, at 32-bit (Drop-seq) and
+    48-bit (SPLiT-seq) keys, with the spill lane in use."""
+    if config == "dropseq":
+        records, bc_len, umi_len = dropseq_batch(1 << 20, 2**31 + 22), 12, 8
+    else:
+        records = np.concatenate(splitseq_batches(1 << 20, 1 << 20, 2**31 + 22))
+        bc_len, umi_len = 24, 10
+    srt = np.sort(records, order=("barcode", "umi", "index"))
+    checked = []
+    real = TD._masked_histogram_sorted
+    monkeypatch.setattr(TD, "_masked_histogram_sorted", lambda *a: checked.append(1) or real(*a))
+    kw = dict(device=card, batch_records=1 << 16, capacity=1 << 14,
+              max_uniques_per_shard=1 << 16)
+    unsorted = TD.stream_file_histogram(
+        MmapReader(write_records(tmp_path / "u.ibu", records, bc_len, umi_len)), **kw)
+    assert not checked
+    got = TD.stream_file_histogram(
+        MmapReader(write_records(tmp_path / "s.ibu", srt, bc_len, umi_len, sorted_flag=True)),
+        **kw)
+    assert len(checked) == 16
+    assert got == unsorted == TS.barcode_histogram_np(records) and len(got) > 1 << 14
