@@ -41,8 +41,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    record sort (``csrc/record_sort.cu``) in each mode of ``SORT_MODES`` at
    10M records, called as ``stats.sort_records``' callers call it (phase 6's
    hinted ``sort_batch``, the same records unhinted, where the key and its
-   passes are sized by the 192-bit bound, and the ``dropseq.sort`` cell's
-   call): on 3 input sets the sort held exactly against
+   passes are sized by the 192-bit bound, the ``dropseq.sort`` cell's call,
+   and random full-width records, W = 192): on 3 input sets the sort held exactly against
    ``plain_sort_records`` and ``field_ors`` against ``plain_field_ors``,
    then timed beside them and beside ``torch.sort`` of the packed key, with
    each of its four kernels' device time and launches a sort from
@@ -362,11 +362,14 @@ SORT_KERNELS = {
 #: ``stats.sort_records``' hints). ``sort_batch`` is phase 6's hinted call
 #: (the hint check reads the ORs; exact passes), ``unhinted`` the same
 #: records with no hints (no check, passes to the 192-bit bound, the empty
-#: ones skipped on the card), ``dropseq`` the ``dropseq.sort`` cell's call
+#: ones skipped on the card), ``dropseq`` the ``dropseq.sort`` cell's call,
+#: ``full_width`` random 64-bit fields (W = 192: three key words, 24 live
+#: passes), which no format reaches
 SORT_MODES = {
     "sort_batch": ((32, 24, 24), {"bc_len": 16, "umi_len": 12, "index_bits": 32}),
     "unhinted": ((32, 24, 24), {}),
     "dropseq": ((24, 16, 16), {"bc_len": 12, "umi_len": 8, "index_bits": 32}),
+    "full_width": ((64, 64, 64), {}),
 }
 #: the group-by's kernels (``csrc/record_sort.cu``) in launch order, and the
 #: bytes each must move an entry for ``w`` live key words, ``v`` bytes of
@@ -850,6 +853,12 @@ def kernel_ms_by_name(fn, sets, names, iters: int = 8) -> dict | None:
     return got
 
 
+def random_bits(n: int, bits: int, gen: torch.Generator, card) -> torch.Tensor:
+    """``n`` random int64 words of ``bits`` random low bits (all 64 at 64)."""
+    lo, hi = (0, 1 << bits) if bits < 64 else (-(1 << 63), (1 << 63) - 1)
+    return torch.randint(lo, hi, (n,), generator=gen, device=card, dtype=torch.int64)
+
+
 def library_sort(*words: torch.Tensor) -> torch.Tensor:
     """``torch.sort`` of the packed key: the stable sort of each u64 word,
     least significant first, with the gathers between (one sort for a
@@ -874,8 +883,7 @@ def record_sort_phase(card, n: int) -> list[dict]:
     for mode, (bits, hints) in SORT_MODES.items():
         hi_used = (hints.get("bc_len", 32) > 16, hints.get("umi_len", 32) > 16,
                    hints.get("index_bits", 64) > 32)
-        sets = [(torch.stack([torch.randint(0, 1 << b, (n,), generator=gen, device=card,
-                                            dtype=torch.int64) for b in bits], dim=1),)
+        sets = [(torch.stack([random_bits(n, b, gen, card) for b in bits], dim=1),)
                 for _ in range(3)]
         widths = SC.key_widths(SC.plain_field_ors(sets[0][0]).tolist(), hi_used)
         require(widths == bits, f"record sort {mode}: the inputs fill {bits} bits: {widths}")

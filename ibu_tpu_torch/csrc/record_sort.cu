@@ -34,13 +34,13 @@
 //   on the order, so one read serves every pass).
 // - pass_kernel, one launch a pass (onesweep): a block takes the next tile of
 //   256 * ITEMS keys from an atomic counter, ranks its keys by digit stably
-//   (each warp ranks 32 keys at a time by 8 ballots, carrying per-digit counts
-//   across its runs in shared memory, as csrc/sort_lab.cu's rank_cumsum_kernel
-//   does), publishes its per-digit counts and looks back over the tiles before
-//   it for their prefix (decoupled look-back: a status word a tile and digit
-//   holds a flag, the pass and a count), then puts its keys in digit order in
-//   shared memory and writes each to its bucket's start plus its place. A
-//   pass reads and writes 8 B a key a live plane.
+//   (rank_warp: each warp finds each of its items' peers by 8 ballots, then
+//   counts them with one shared-memory atomicAdd a digit an item), publishes
+//   its per-digit counts and looks back over the tiles before it for their
+//   prefix (decoupled look-back: a status word a tile and digit holds a flag,
+//   the pass and a count), then puts its keys in digit order in shared memory
+//   and writes each to its bucket's start plus its place. A pass reads and
+//   writes 8 B a key a live plane.
 // - unpack_kernel: the (N, 3) int64 records from the sorted planes (8 B a
 //   live plane read, 24 B written a record), from whichever buffer the last
 //   live pass wrote, found from W on the card. A block rebuilds 256 records
@@ -50,11 +50,17 @@
 //
 // What bounds it: device-memory bytes for the OR-reduce, the pack and the
 // rebuild (63-77% of their bytes at 3350 GB/s on an H100); the passes run at
-// about a third of their 16 B a key. A pass's time went mostly to the rank
-// (labs/record_sort_ablation.cu: loads, tile counts and scans alone take a
-// third of it), and tile size, block size, occupancy and counts published
-// before the rank moved it by a few percent: the next gain is a rank without
-// the warp's serial chain of counter updates.
+// about 42% of their 16 B a key a live plane (7 passes over 2^22 one-word
+// keys in 0.33 ms). The rank took half of a pass, and its cost was its
+// instructions, not the warp's chain of counter updates: the counts taken out
+// of the chain (one atomicAdd a digit an item, no item waiting on another,
+// rank_warp's order argument below) moved the pass by under 1%, and the same
+// with the peers' ballots in PTX, about 28 instructions a digit in place of
+// 65, took it 17% faster (labs/record_sort_ablation.cu). In the lab's traced
+// copy of the pass (2 tiles an SM; the shipped pass_kernel<1, 16> fits 3) a
+// tile now takes about 11.8 us: the loads and the rank 3.7, the look-back
+// 3.7, the scans 1.1, the scatter through shared memory and out 2.1. The
+// look-back's serial walk, one status word a step, is the longest part.
 //
 // Every kernel launches on the caller's stream, allocates nothing and never
 // synchronises: the wrapper allocates the planes and the status words in one
@@ -210,16 +216,76 @@ pack_kernel(const uint64_t* __restrict__ rec, int64_t n, const unsigned long lon
   }
 }
 
-// The lanes of the warp whose digit equals d (8 ballots, one per bit).
-__device__ __forceinline__ unsigned digit_peers(int d) {
+// The lanes of the warp whose digit equals d: per bit, a ballot of the lanes
+// that have it set, complemented where d has it clear, ANDed in. Written in
+// PTX so that ptxas moves the digit's bits into predicates at once (R2P) and
+// spends a ballot, a predicated NOT and an AND a bit, about 28 instructions
+// a digit; the same in C took about 65.
+__device__ __forceinline__ unsigned digit_peers(unsigned d) {
   unsigned peers = kFull;
 #pragma unroll
   for (int b = 0; b < 8; ++b) {
-    const bool bit = (d >> b) & 1;
-    const unsigned set = __ballot_sync(kFull, bit);
-    peers &= bit ? set : ~set;
+    unsigned same;
+    asm("{\n\t.reg .pred p;\n\t.reg .b32 m;\n\t"
+        "and.b32 m, %1, %2;\n\t"
+        "setp.ne.u32 p, m, 0;\n\t"
+        "vote.sync.ballot.b32 %0, p, 0xffffffff;\n\t"
+        "selp.b32 m, 0, -1, p;\n\t"
+        "xor.b32 %0, %0, m;\n\t}"
+        : "=r"(same)
+        : "r"(d), "r"(1u << b));
+    peers &= same;
   }
   return peers;
+}
+
+// A warp's stable rank of its ITEMS x 32 keys by digit (lane l's item k is
+// key first + 32k, where ``first`` is the warp's first key plus l; keys from
+// n on are not ranked): place[k] gets the count of the warp's keys before it
+// with its digit, and ``counts`` (the warp's 256 counters, zeroed) ends
+// holding the warp's count of each digit.
+//
+// Every item's peers first: their ballots do not depend on each other, and a
+// warp whose keys all lie below n takes no ballot of the valid lanes. Then,
+// item by item, the digit's leader (its lowest lane among the valid ones; an
+// invalid lane is in no item's peers, its own neither) adds the item's count
+// of the digit with one atomicAdd and keeps the old value: the count of the
+// digit in the items before. Last each lane takes its leader's old value by
+// shuffle and adds the peers below it. No step waits for an earlier item's
+// count, so nothing runs through a chain of shared-memory round trips.
+//
+// Why the counts come in item order: a counter's atomics are totally ordered,
+// and each item has one atomic per digit. The __syncwarp after each item
+// orders the memory operations of the lanes before it before those after it
+// (the CUDA programming guide's guarantee for __syncwarp), so item k's
+// atomic on a counter happens before item k + 1's on the same counter, by
+// whichever lanes, and returns the sum over items 0 .. k - 1, not over some
+// other set. It costs nothing here: ptxas keeps the atomics back to back
+// (a warp's shared-memory operations issue in order).
+template <int ITEMS>
+__device__ __forceinline__ void rank_warp(const int (&digit)[ITEMS], int64_t first, int64_t n,
+                                          unsigned* counts, unsigned (&place)[ITEMS]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned me = 1u << lane, below = me - 1u;
+  const bool whole = first - lane + ITEMS * 32 <= n;
+  unsigned peers[ITEMS];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    peers[k] = digit_peers(digit[k]);
+    if (!whole) peers[k] &= __ballot_sync(kFull, first + k * 32 < n);
+  }
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    place[k] = 0;
+    if ((peers[k] & (below | me)) == me) {
+      place[k] = atomicAdd(&counts[digit[k]], unsigned(__popc(peers[k])));
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    place[k] = __shfl_sync(kFull, place[k], __ffs(peers[k]) - 1) + __popc(peers[k] & below);
+  }
 }
 
 // Exclusive prefix of ``v`` over the block's threads in order; ``scratch``
@@ -276,20 +342,7 @@ pass_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t
     digit[k] = digit_of(key[k], pass);
   }
 
-  // rank: each key's count among the earlier keys of its warp with its digit
-  const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const bool valid = first + k * 32 < n;
-    const unsigned peers = digit_peers(digit[k]) & __ballot_sync(kFull, valid);
-    const unsigned before = __popc(peers & below);
-    unsigned prior = 0;
-    if (valid) prior = warp_counts[warp][digit[k]];
-    place[k] = prior + before;
-    __syncwarp();
-    if (valid && before == 0) warp_counts[warp][digit[k]] = prior + __popc(peers);
-    __syncwarp();
-  }
+  rank_warp(digit, first, n, warp_counts[warp], place);
   __syncthreads();
 
   // thread tid is digit tid from here: the warps' offsets and the tile's count
@@ -377,8 +430,11 @@ unpack_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b, in
   }
 }
 
-// Keys a thread ranks in a pass, by key words: registers bound the wider keys.
-constexpr int items_for(int words) { return words == 1 ? 16 : words == 2 ? 12 : 8; }
+// Keys a thread ranks in a pass, by key words: the exchange (one plane of
+// the tile at a time) holds 16 in static shared memory, and registers bound
+// three-word keys at 12 (labs/record_sort_ablation.cu: 12 and 16 against 8
+// and 12 took two- and three-word passes 12% and 7% faster on an H100).
+constexpr int items_for(int words) { return words == 3 ? 12 : 16; }
 constexpr int64_t kHistBytes = int64_t(kMaxPasses) * kDigits * 4;
 constexpr int64_t kCounterBytes = 256;  // kMaxPasses u32, padded
 
@@ -512,8 +568,8 @@ extern "C" int ibu_record_sort(const void* records, int64_t n, const void* ors, 
 //   entry); the entry N - 1 leaves the count of valid groups in
 //   *n_distinct, above n_slots too.
 //
-// What bounds it on an H100: the passes, at about a third of their 16 B a
-// key (the record sort's rate), take 60% of a Drop-seq batch's 0.13 ms.
+// What bounds it on an H100: the passes, at 29-39% of their 16 B a key a
+// live pass, take about half of a Drop-seq batch's 0.11 ms.
 // The segment kernel takes about 20 us a 2^20 batch, 0.4 TB/s of its bytes;
 // a count kernel and a one-block scan of the tiles' counts in place of the
 // look-back took as long in three launches, so its own work, not the

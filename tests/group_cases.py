@@ -53,10 +53,38 @@ def batch(seed: int, n: int, bits: int, pool: int, hot: float = 0.0) -> np.ndarr
     return records
 
 
+def with_barcodes(seed: int, barcodes: np.ndarray) -> np.ndarray:
+    """``(n, 3)`` records whose barcodes are ``barcodes`` (int64 bits), the
+    other fields random."""
+    rng = np.random.default_rng(seed)
+    records = rng.integers(-(1 << 63), (1 << 63) - 1, (len(barcodes), 3), dtype=np.int64)
+    records[:, 0] = barcodes
+    return records
+
+
+def one_digit_pass(seed: int, n: int) -> np.ndarray:
+    """24-bit barcodes whose middle byte is 0xAB in every record: every key
+    has one digit in the second pass and random ones in the first and third."""
+    rng = np.random.default_rng(seed)
+    bc = rng.integers(0, 1 << 24, n, dtype=np.int64) & ~np.int64(0xFF00) | np.int64(0xAB00)
+    return with_barcodes(seed, bc)
+
+
+def in_order(seed: int, n: int, pool: int, reverse: bool) -> np.ndarray:
+    """Barcodes of 24 bits from a pool of ``pool``, in ascending or
+    descending order."""
+    rng = np.random.default_rng(seed)
+    bc = np.sort(pooled(rng, n, width_keys(rng, pool, 24)))
+    return with_barcodes(seed, bc[::-1] if reverse else bc)
+
+
 #: name → (records, max_uniques, bc16): key widths 0 to 64 around the word
 #: and hint edges, a hot barcode whose run crosses many 1024-entry tiles,
 #: more groups than slots, one record, a size that is no multiple of any
-#: block, and hi bits under the 32-bit hint (grouped by the lo word alone)
+#: block, and hi bits under the 32-bit hint (grouped by the lo word alone);
+#: then the rank's edges: each warp's 32 keys of distinct digits (barcodes
+#: counting up), one digit in every key in one pass, keys in order and in
+#: reverse, and exactly one 4096-key tile and one key more
 BATCH_CASES = {
     "w0": (lambda: batch(1, 5003, 0, 1), 64, False),
     "w1": (lambda: batch(2, 5003, 1, 2), 64, True),
@@ -68,6 +96,13 @@ BATCH_CASES = {
     "more_groups_than_slots": (lambda: batch(8, 20_011, 64, 3000), 256, False),
     "n1": (lambda: batch(9, 1, 24, 1), 16, True),
     "violated_hint": (lambda: batch(10, 5003, 64, 300), 1024, True),
+    "distinct_digits": (lambda: with_barcodes(24, np.arange(20_011, dtype=np.int64) + 77),
+                        32768, True),
+    "one_digit_pass": (lambda: one_digit_pass(25, 20_011), 32768, True),
+    "sorted": (lambda: in_order(26, 20_011, 3000, False), 4096, True),
+    "reversed": (lambda: in_order(27, 20_011, 3000, True), 4096, True),
+    "one_tile": (lambda: batch(28, 4096, 24, 1000), 1024, True),
+    "one_tile_plus_one": (lambda: batch(29, 4097, 24, 1000), 1024, True),
 }
 
 
@@ -111,7 +146,11 @@ def zero_among_empties() -> list:
             (np.array([0, 3, 0], np.int64), np.array([4, 1, 0], np.int64))]
 
 
-#: name → (parts, capacity, lane)
+#: name → (parts, capacity, lane); the rank's edges last: exactly one
+#: 4096-entry tile of one-word keys and one entry more, and keys that recur
+#: in 41 parts with other counts, so that entries tie in every key digit and
+#: only the passes' stability keeps their counts' order, at one and two key
+#: words (the host's bound) and three (the widest)
 MERGE_CASES = {
     "w0": (lambda: merge(11, 0, 64, 3, 32, 1), 64, 0),
     "w1": (lambda: merge(12, 1, 64, 3, 32, 2), 64, 96),
@@ -127,6 +166,10 @@ MERGE_CASES = {
     "n1": (lambda: [(np.array([9], np.int64), np.array([3], np.int64))], 1, 0),
     "all_empty": (lambda: merge(20, 24, 1000, 3, 333, 10, fill=0.0), 1000, 999),
     "odd_sizes": (lambda: merge(21, 40, 100_003, 2, 7919, 150_000), 100_003, 2 * 7919),
+    "one_tile": (lambda: merge(30, 24, 2048, 2, 1024, 3000), 2048, 2 * 1024),
+    "one_tile_plus_one": (lambda: merge(31, 24, 2049, 2, 1024, 3000), 2049, 2 * 1024),
+    "ties_w24": (lambda: merge(32, 24, 2048, 40, 2048, 2048, fill=1.0), 2048, 40 * 2048),
+    "ties_w48": (lambda: merge(33, 48, 2048, 40, 2048, 2048, fill=1.0), 2048, 40 * 2048),
 }
 
 

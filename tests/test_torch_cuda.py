@@ -872,11 +872,51 @@ def case_tensor(made, device):
     return records[::step], records_to_tensor(records, device)[::step]
 
 
+def counting_index(n, seed):
+    """Drop-seq-wide records whose 16-bit index counts up: in the first pass
+    each warp's 32 keys hold 32 distinct digits."""
+    records = width_records(n, seed, (24, 16, 16))
+    records["index"] = np.arange(n, dtype=np.uint64) & np.uint64(0xFFFF)
+    return records
+
+
+def one_digit_pass(n, seed):
+    """A constant 8-bit UMI, 0xFF: every key has digit 0xFF in the third
+    pass (bits 16-23 under a 16-bit index) and random digits in the others."""
+    records = width_records(n, seed, (24, 8, 16))
+    records["umi"] = 0xFF
+    return records
+
+
+def in_order(n, seed, reverse):
+    records = np.sort(width_records(n, seed, (24, 16, 16)), order=("barcode", "umi", "index"))
+    return records[::-1].copy() if reverse else records
+
+
+def ties(n, seed, bits):
+    """Barcodes and UMIs from pools of 2 and 3 values, the index random: the
+    keys tie in every digit above the index, so only each pass's stability
+    keeps the index order the lower passes made."""
+    rng = np.random.default_rng(seed)
+    records = width_records(n, seed, bits)
+    for name, pool in (("barcode", 2), ("umi", 3)):
+        records[name] = records[name][rng.integers(0, pool, n)]
+    return records
+
+
 DROPSEQ_HINTS = {"bc_len": 12, "umi_len": 8, "index_bits": 32}
+#: the hints that bound v3's 80-bit key (16-base barcodes, 12-base UMIs,
+#: 32-bit read numbers) at 96 bits: two key words on both routes
+V3_HINTS = {"bc_len": 16, "umi_len": 12, "index_bits": 32}
 #: name → (records, hints): key widths 0 ... 192 around the word edges, bit
 #: 63 in each field, ties, tiny batches, a partial last tile, set bits
 #: beyond the hints (sorted unchecked, where they come back as zeros) and a
-#: strided row view
+#: strided row view; then the rank's edges: each warp's 32 keys of distinct
+#: digits, one digit in every key in one pass, keys in order and in reverse,
+#: exactly one tile and one key more at each key width's tile (4096 keys at
+#: one word and at two, the Drop-seq hints' checked route and their unchecked
+#: route's 96-bit bound; 3072 at three, unhinted), and ties that only the
+#: passes' stability separates at one, two and three key words
 KEY_CASES = {
     "W0": (lambda: width_records(3000, 1, (0, 0, 0)), {}),
     "W56": (lambda: width_records(N, 2, (24, 16, 16), dup=True), DROPSEQ_HINTS),
@@ -899,6 +939,15 @@ KEY_CASES = {
                              {**DROPSEQ_HINTS, "check": False}),
     "strided_view": (lambda: every_second_row(width_records(2 * N, 15, (24, 16, 16))),
                      DROPSEQ_HINTS),
+    "distinct_digits": (lambda: counting_index(N, 16), DROPSEQ_HINTS),
+    "one_digit_pass": (lambda: one_digit_pass(N, 17), DROPSEQ_HINTS),
+    "sorted": (lambda: in_order(N, 18, False), DROPSEQ_HINTS),
+    "reversed": (lambda: in_order(N, 19, True), DROPSEQ_HINTS),
+    **{f"tile_{n}": (lambda n=n: width_records(n, 20 + n, (24, 16, 16)), hints)
+       for n, hints in ((4096, DROPSEQ_HINTS), (4097, DROPSEQ_HINTS), (3072, {}), (3073, {}))},
+    "ties_w1": (lambda: ties(N, 21, (24, 16, 16)), DROPSEQ_HINTS),
+    "ties_w2": (lambda: ties(N, 22, (32, 24, 24)), V3_HINTS),
+    "ties_w3": (lambda: ties(N, 23, (64, 64, 64)), {}),
 }
 
 
