@@ -33,7 +33,7 @@ def control_readings(bench: dict, cell: str, seed: int, sizes: dict | None = Non
     workdir = tempfile.mkdtemp(prefix="portbench-control-")
     try:
         state = job.prepare({"cfg": cfg, "params": params, "seed": seed, "cell": cell,
-                             "workdir": workdir})
+                             "workdir": workdir, "rank": 0, "ranks": spec["entry"]["chips"]})
         found = job.compare(state, job.reference(state), job.control(state))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -17,6 +17,10 @@ inputs and compares what the jobs returned. The last line of standard
 output is the result's JSON; the numbers compared, each beside its limit,
 are the last lines of standard error and the last key of the result. A
 process that holds JAX or the JAX package by then prints no result.
+
+A cell of more than one card (its ``chips``) runs one rank a card, each in
+a process of its own: :mod:`portbench.ranks`, which the run of a one-card
+cell never loads.
 """
 
 from __future__ import annotations
@@ -162,6 +166,73 @@ def _null_span(name: str):
     return contextlib.nullcontext()
 
 
+class ForbiddenModules(RuntimeError):
+    """A process of the run held modules of :data:`FORBIDDEN` after the
+    window: ``found`` names each with the rank that held it."""
+
+    def __init__(self, found: list[str]):
+        super().__init__(", ".join(found))
+        self.found = found
+
+
+def warm_up(job, state: dict, sampled: int | None, sync) -> None:
+    """Every distinct input once, holding as many outputs as the window
+    keeps, so that the caching allocators hold what it needs."""
+    held = []
+    for i in range((sampled or 0) + state["distinct"] + 1):
+        held.append(job.run(state, i))
+        sync()
+    del held
+
+
+def measure_window(job, state: dict, seconds: float, trace: bool, keeper: Keeper, sync,
+                   workdir: str, job_name: str) -> tuple[dict, dict | None, dict | None]:
+    """The timed window: traced for at most :data:`TRACE_SECONDS` under
+    ``torch.profiler`` (CPU and CUDA), else the card alone recorded over the
+    whole window. Returns the window, the traced summary and the card's
+    reading (each None where not taken)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench import trace as trace_mod
+
+    device = state["device"]
+    summary, card = None, None
+    if trace:
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            window = timed_window(job, state, min(seconds, TRACE_SECONDS), keeper, sync)
+        trace_path = str(Path(workdir) / "trace.json")
+        prof.export_chrome_trace(trace_path)
+        del prof
+        summary = trace_mod.summarize(trace_path)
+        summary.update(job=job_name, records_per_job=state["records_per_job"],
+                       bc_len=state["bc_len"], umi_len=state["umi_len"])
+    elif device.type == "cuda":
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            window = timed_window(job, state, seconds, keeper, sync)
+        card_path = str(Path(workdir) / "card.json")
+        prof.export_chrome_trace(card_path)
+        del prof
+        card = trace_mod.card_time(card_path)
+    else:
+        window = timed_window(job, state, seconds, keeper, sync)
+    return window, summary, card
+
+
+def compare_kept(job, state: dict, kept: list) -> tuple[dict, float]:
+    """The plain reference worked out again, and the job's numbers over the
+    kept outputs, each ``(value, limit)``; and the seconds that took."""
+    limits = job.LIMITS
+    t_ref = time.perf_counter()
+    found = job.compare(state, job.reference(state), kept)
+    reference_s = time.perf_counter() - t_ref
+    checks = {name: (found[name], limits[name]) for name in limits}
+    checks["jobs_compared"] = (len(kept), None)
+    return checks, reference_s
+
+
 def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
              device: torch.device, t_start: float,
              sizes: dict | None = None) -> tuple[dict, dict]:
@@ -169,11 +240,14 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
     ``{name: (value, limit)}``. ``t_start`` is the process's start on
     ``time.perf_counter``'s clock. ``sizes`` (tests only) replaces entries
     of the configuration (``"cfg"``) and of the parameters (``"params"``)."""
-    from portbench import trace as trace_mod
-
     spec = cell_spec(bench, cell)
     cfg = {**spec["cfg"], **(sizes or {}).get("cfg", {})}
     params = {**spec["params"], **(sizes or {}).get("params", {})}
+    if spec["entry"]["chips"] > 1:
+        from portbench.ranks import run_cell as run_ranks
+
+        return run_ranks(bench, cell, seed, seconds, trace, device, t_start, cfg, params,
+                         spec["entry"]["chips"])
     job = load_module("jobs", params["job"])
     sync = _sync(device)
     workdir = tempfile.mkdtemp(prefix="portbench-")
@@ -184,43 +258,14 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
         state["span"] = torch.profiler.record_function if trace else _null_span
         sampled = params.get("sampled_jobs")
         keeper = Keeper(seed, sampled, state["distinct"])
-
-        # warm-up: every distinct input once, holding as many outputs as the
-        # window keeps, so that the caching allocators hold what it needs
-        held = []
-        for i in range((sampled or 0) + state["distinct"] + 1):
-            held.append(job.run(state, i))
-            sync()
-        del held
+        warm_up(job, state, sampled, sync)
         # what set-up made lives on: a full collection in the window skips it
         gc.collect()
         gc.freeze()
         setup_s = time.perf_counter() - t_start
 
-        summary, card = None, None
-        from torch.profiler import ProfilerActivity, profile
-
-        if trace:
-            activities = [ProfilerActivity.CPU]
-            if device.type == "cuda":
-                activities.append(ProfilerActivity.CUDA)
-            with profile(activities=activities) as prof:
-                window = timed_window(job, state, min(seconds, TRACE_SECONDS), keeper, sync)
-            trace_path = str(Path(workdir) / "trace.json")
-            prof.export_chrome_trace(trace_path)
-            del prof
-            summary = trace_mod.summarize(trace_path)
-            summary.update(job=params["job"], records_per_job=state["records_per_job"],
-                           bc_len=state["bc_len"], umi_len=state["umi_len"])
-        elif device.type == "cuda":
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                window = timed_window(job, state, seconds, keeper, sync)
-            card_path = str(Path(workdir) / "card.json")
-            prof.export_chrome_trace(card_path)
-            del prof
-            card = trace_mod.card_time(card_path)
-        else:
-            window = timed_window(job, state, seconds, keeper, sync)
+        window, summary, card = measure_window(job, state, seconds, trace, keeper, sync,
+                                               workdir, params["job"])
 
         peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
         kept = keeper.kept()
@@ -229,17 +274,28 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-
-        limits = job.LIMITS
-        t_ref = time.perf_counter()
-        found = job.compare(state, job.reference(state), kept)
-        reference_s = time.perf_counter() - t_ref
-        checks = {name: (found[name], limits[name]) for name in limits}
-        checks["jobs_compared"] = (len(kept), None)
+        checks, reference_s = compare_kept(job, state, kept)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    device_info = {
+        "platform": "gpu" if device.type == "cuda" else device.type,
+        "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "count": cards_used() if device.type == "cuda" else 1,
+        "memory_peak_bytes": int(peak),
+    }
+    if summary is not None:
+        device_info.update(busy_s=summary["busy_s"], window_s=summary["window_s"])
     run = {"window": window, "setup_s": setup_s, "trace": summary, "card": card}
+    return report(bench, cell, seed, trace, run, kept, checks, device_info, reference_s)
+
+
+def report(bench: dict, cell: str, seed: int, trace: bool, run: dict, kept: list,
+           checks: dict, device_info: dict, reference_s: float) -> tuple[dict, dict]:
+    """The result's line from the run's record (``window``, ``setup_s``,
+    ``trace``, ``card``): the cell's metrics, each read by its module, the
+    verdict and the device; the job times on standard error."""
+    window, summary, card, setup_s = run["window"], run["trace"], run["card"], run["setup_s"]
     metrics = {}
     for m in cell_metrics(bench, cell, trace):
         value = load_module("metrics", m["name"]).read(run)
@@ -247,16 +303,9 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     correct = (window["failed"] == 0 and len(kept) > 0
                and all(v <= lim for v, lim in checks.values() if lim is not None))
-    device_info = {
-        "platform": "gpu" if device.type == "cuda" else device.type,
-        "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "count": cards_used() if device.type == "cuda" else 1,
-        "memory_peak_bytes": int(peak),
-    }
     result = {"correct": bool(correct), "attempted": window["attempted"],
               "failed": window["failed"], "metrics": metrics, "device": device_info}
     if summary is not None:
-        device_info.update(busy_s=summary["busy_s"], window_s=summary["window_s"])
         result["breakdown"] = {"device_ops": summary["device_ops"],
                                "idle_gaps": summary["idle_gaps"]}
     times = np.array(window["job_s"]) * 1e3
@@ -300,9 +349,12 @@ def run_and_report(bench: dict, args: argparse.Namespace, device: torch.device,
     unless the process holds a module of :data:`FORBIDDEN` by then: the
     look comes after every part of the run (the reference, the comparison,
     the metrics' readers) has been loaded and has run."""
-    result, checks = run_cell(bench, args.workload, args.seed, args.seconds,
-                              bool(args.trace), device, t_start, sizes)
-    present = forbidden_modules()
+    try:
+        result, checks = run_cell(bench, args.workload, args.seed, args.seconds,
+                                  bool(args.trace), device, t_start, sizes)
+        present = forbidden_modules()
+    except ForbiddenModules as e:
+        present = e.found
     if present:
         print(f"portbench: the process holds {', '.join(present)} after the window; "
               "no result", file=sys.stderr)

@@ -5,13 +5,17 @@ Each module holds:
 * ``LIMITS``: the numbers its comparison gives, each with its limit;
 * ``prepare(ctx)``: the job's inputs from the generator and anything the
   call needs (a file), as a state dict with ``records_per_job`` and
-  ``distinct`` (the number of distinct inputs the jobs cycle over);
+  ``distinct`` (the number of distinct inputs the jobs cycle over); in a
+  cell of more than one rank (:mod:`portbench.ranks`) each rank calls it
+  with ``ctx["rank"]`` and ``ctx["ranks"]``, rank 0 first, and
+  ``records_per_job`` is that rank's share;
 * ``run(state, i)``: job ``i``, the timed call into the program, returning
   its output in host memory;
 * ``reference(state)``: the plain reference's answers, worked out again from
   the inputs (:mod:`portbench.reference.plain`);
 * ``compare(state, ref, kept)``: the numbers of ``LIMITS`` over the kept
-  ``(i, output)`` pairs;
+  ``(i, output)`` pairs, the output a list of every rank's where the cell
+  has more than one;
 * ``control(state)``: the reference put in the program's place with one of
   the configuration's guarantees broken, as ``(i, output)`` pairs that
   ``compare`` takes; the benchmark's own runs never call it.

@@ -43,6 +43,7 @@ def hist_bytes(n: int, bc_len: int = 0, umi_len: int = 0) -> int:
 JOB_BYTES = {
     "roundtrip": codec_bytes,
     "stream_stats": fold_bytes,
+    "cohort_stats": fold_bytes,
     "sort": sort_bytes,
     "histogram": hist_bytes,
 }

@@ -18,6 +18,9 @@ SMALL = {
                "max_uniques_per_shard": 8192},
 }
 SEED = 2**31 + 12345
+#: the ranks of a cell of more than one card at a CPU's size, each streaming
+#: as many reads as :data:`SMALL`'s file holds
+RANKS = 2
 
 
 def bench() -> dict:
@@ -31,12 +34,30 @@ def bench() -> dict:
 CELLS = tuple(w["name"] for w in bench()["workloads"])
 
 
+def small_bench() -> dict:
+    """``BENCHMARK.json`` with every cell of more than one card on
+    :data:`RANKS` cards."""
+    b = bench()
+    b["workloads"] = [{**w, "chips": RANKS} if w["chips"] > 1 else w for w in b["workloads"]]
+    return b
+
+
+def sizes(cell: str, base: dict = SMALL) -> dict:
+    """``base`` for ``cell``; a cell of more than one card reads
+    :data:`RANKS` times ``base``'s reads, as many a rank."""
+    entry = next(w for w in bench()["workloads"] if w["name"] == cell)
+    if entry["chips"] == 1:
+        return base
+    return {"cfg": base["cfg"], "params": {**base["params"], "reads": RANKS * base["cfg"]["reads"]}}
+
+
 def run_small(cell: str, seed: int = SEED, seconds: float = 0.3, trace: bool = False,
               device: str = "cpu"):
-    """One run of ``cell`` at :data:`SMALL` sizes, past the look for a card."""
+    """One run of ``cell`` of :func:`small_bench` at :func:`sizes`, past
+    the look for a card."""
     import torch
 
     from portbench.harness import run_cell
 
-    return run_cell(bench(), cell, seed, seconds, trace, torch.device(device),
-                    time.perf_counter(), sizes=SMALL)
+    return run_cell(small_bench(), cell, seed, seconds, trace, torch.device(device),
+                    time.perf_counter(), sizes=sizes(cell))

@@ -1,8 +1,9 @@
 """A run with the timed path broken underneath comes out not correct: for
-each cell, a step that returns its state unchanged, half of the work left
-out, and an answer altered where it is produced. (Every cell runs on one
-card, so no exchange between cards can be left out.) The runs skip the
-harness's look for a card and drive the rest of a run on the CPU."""
+each one-card cell, a step that returns its state unchanged, half of the
+work left out, and an answer altered where it is produced. The runs skip
+the harness's look for a card and drive the rest of a run on the CPU. The
+cohort's faults, the exchange between ranks left out among them, are in
+``test_portbench_ranks.py``, planted in every rank's process."""
 
 from __future__ import annotations
 
@@ -15,6 +16,9 @@ import ibu_tpu_torch.io.stream as stream_mod
 import ibu_tpu_torch.ops.codec_cuda as codec_mod
 import ibu_tpu_torch.ops.stats as stats_mod
 import ibu_tpu_torch.parallel.device as device_mod
+# bound to the engine's real fold before any fault patches it: the module
+# takes STATS_MAP_REDUCE by name when it is first imported
+import ibu_tpu_torch.parallel.multihost  # noqa: F401
 
 
 def _flip_first(t: torch.Tensor) -> torch.Tensor:

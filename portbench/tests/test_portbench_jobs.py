@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _small import CELLS, SEED, SMALL, bench, run_small
+from _small import CELLS, SEED, SMALL, bench, run_small, sizes, small_bench
 
 from portbench.controls import control_readings
 from portbench.harness import cell_metrics, cell_spec, load_module
@@ -17,8 +17,8 @@ from portbench.harness import cell_metrics, cell_spec, load_module
 
 def _job_state(cell: str, tmp_path):
     spec = cell_spec(bench(), cell)
-    cfg = {**spec["cfg"], **SMALL["cfg"]}
-    params = {**spec["params"], **SMALL["params"]}
+    cfg = {**spec["cfg"], **sizes(cell)["cfg"]}
+    params = {**spec["params"], **sizes(cell)["params"]}
     job = load_module("jobs", params["job"])
     state = job.prepare({"cfg": cfg, "params": params, "seed": SEED, "cell": cell,
                          "workdir": str(tmp_path)})
@@ -70,5 +70,5 @@ CONTROL_SIZES = {"cfg": SMALL["cfg"], "params": {**SMALL["params"], "batch_recor
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("seed", [SEED, 11])
 def test_the_control_fails_the_comparison(cell, seed):
-    readings = control_readings(bench(), cell, seed, CONTROL_SIZES)
+    readings = control_readings(small_bench(), cell, seed, sizes(cell, CONTROL_SIZES))
     assert any(v > lim for v, lim in readings.values()), readings

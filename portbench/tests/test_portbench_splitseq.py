@@ -170,11 +170,15 @@ def test_silent_untraced_with_nothing_recorded_or_without_a_tracer(name, monkeyp
     assert read(RUN) is None
 
 
-@pytest.mark.parametrize("cell, names", [
-    ("splitseq.histogram", {"hist_spilled_per_job", "hist_spill_ms_per_job"}),
-    ("v3.encode_sort", {"write_gbps"}),
+@pytest.mark.parametrize("cell, names, card_only", [
+    ("splitseq.histogram", {"hist_spilled_per_job", "hist_spill_ms_per_job"},
+     {"hist_sort_passes_per_job"}),
+    ("v3.encode_sort", {"write_gbps"}, set()),
 ])
-def test_a_traced_cpu_run_reports_the_cells_new_metrics(cell, names, capsys):
+def test_a_traced_cpu_run_reports_the_cells_new_metrics(cell, names, card_only, capsys):
+    """The cell's per-layer metrics are exactly ``names`` and ``card_only``;
+    a CPU run reports ``names``, and ``card_only`` (a counter of the card's
+    kernels) only on the card."""
     args = harness.parse_args(["--workload", cell, "--seed", str(SEED), "--seconds", "0.3",
                                "--trace", "1"])
     rc = harness.run_and_report(bench(), args, torch.device("cpu"), 0.0, sizes=SIZES[cell])
@@ -182,7 +186,9 @@ def test_a_traced_cpu_run_reports_the_cells_new_metrics(cell, names, capsys):
     assert rc == 0 and result["correct"]
     assert names <= set(result["metrics"]) and all(
         result["metrics"][n]["value"] > 0 for n in names)
-    assert {m["name"] for m in bench()["per_layer"] if cell in m.get("workloads", ())} == names
+    assert not card_only & set(result["metrics"])
+    assert {m["name"] for m in bench()["per_layer"]
+            if cell in m.get("workloads", ())} == names | card_only
 
 
 @pytest.mark.cuda

@@ -158,3 +158,30 @@ def summarize(path: str) -> dict:
         "device_ops": top(per_op),
         "idle_gaps": top(idle),
     }
+
+
+def collective_offsets(path: str) -> list[float | None]:
+    """For each ``job`` span of the trace at ``path``, in order, the seconds
+    from the start of the job's call into the program (the first other span
+    that starts inside it, on its thread) to the start of the first
+    ``torch.distributed`` operator (``c10d::...``) inside it: how long the
+    rank worked before it entered the cohort's collective. None for a job
+    with no such call or operator."""
+    events = _events(path)
+    jobs = sorted((e for e in events if e.get("cat") == "user_annotation"
+                   and e["name"] == JOB_SPAN), key=lambda e: e["ts"])
+    if not jobs:
+        return []
+    tid = jobs[0]["tid"]
+    own = sorted((e for e in events if e.get("tid") == tid and e["name"] != JOB_SPAN
+                  and (e.get("cat") == "user_annotation"
+                       or (e.get("cat") == "cpu_op" and e["name"].startswith("c10d::")))),
+                 key=lambda e: e["ts"])
+    out: list[float | None] = []
+    for job in jobs:
+        j0, j1 = job["ts"], job["ts"] + job["dur"]
+        inside = [e for e in own if j0 <= e["ts"] < j1]
+        call = next((e for e in inside if e["cat"] == "user_annotation"), None)
+        coll = next((e for e in inside if e["cat"] == "cpu_op"), None)
+        out.append(None if call is None or coll is None else (coll["ts"] - call["ts"]) / 1e6)
+    return out
